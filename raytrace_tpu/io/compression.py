@@ -1,4 +1,4 @@
-"""Zero-stripping array compression (TPU rebuild of the reference's U1).
+"""Zero-stripping array compression (rebuild of the reference's U1).
 
 Wire-compatible with ``Utilities::compress_array``/``decompress_array``
 (src/utilities/RayUtilities.h:93-207). Three modes:

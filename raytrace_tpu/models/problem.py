@@ -2,7 +2,7 @@
 
 The reference hands the kernel an array-of-structs with raw pointers
 (``ray_gain_struct*``, src/RayTraceStructures.h:218-272) and deep-copies it to
-the device per call (src/RayTraceImageCuda.cu:225-289). The TPU-native design
+the device per call (src/RayTraceImageCuda.cu:225-289). This design
 instead builds a struct-of-arrays pytree once per call:
 
 * per-segment gain tables stacked to ``[N, ...]`` with padding to the max

@@ -1,7 +1,7 @@
 """Image binning: deposit per-ray spectra into the near-field image and the
 far-field angular image.
 
-TPU rebuild of the scatter-add accumulation in ``RayTraceImageCPULoop``
+Rebuild of the scatter-add accumulation in ``RayTraceImageCPULoop``
 (src/RayTraceImageCPU.cpp:37-68):
 
 * backward (ASE, method 1) rays bin at their *entry* coordinates;
@@ -11,15 +11,15 @@ TPU rebuild of the scatter-add accumulation in ``RayTraceImageCPULoop``
   the half-cell-padded extent (src/RayTraceImageCPU.cpp:11-16);
 * image[nv*(i1 + i2*nx) + iv] += Iv*scale, I_ang[i3 + i4*na] += sum 2 dv Iv.
 
-Instead of per-ray atomics the deposit is either a ``segment_sum`` over
-computed flat bin ids (invalid/failed rays go to a trash bin) or -- the TPU
-fast path -- a one-hot matmul on the MXU: ``image[c, k] = sum_b
-onehot[b, c] * Iv[b, k]`` with the one-hot in bfloat16 (0/1 are exact) and
-``Iv`` split into three bfloat16 planes whose f32-accumulated partial
-products recover f32-quality sums (~2^-26 relative per element). Both are
-the TPU analogue of the reference threads backend's privatized buffers +
-merge (src/RayTraceImage.cpp:100-133). Per-chunk partials accumulate across
-chunks in float64 like the reference's double image buffers.
+The deposit is a ``segment_sum`` over computed flat bin ids (invalid/failed
+rays go to a trash bin) or, on request, a one-hot matrix product:
+``image[c, k] = sum_b onehot[b, c] * Iv[b, k]`` with the one-hot in
+bfloat16 (0/1 are exact) and ``Iv`` split into three bfloat16 planes whose
+f32-accumulated partial products recover f32-quality sums (~2^-26 relative
+per element). Both stand in for the reference threads backend's privatized
+buffers + merge (src/RayTraceImage.cpp:100-133). Per-chunk partials
+accumulate across chunks in float64 like the reference's double image
+buffers.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def bin_images_dense(Iv, beam: DeviceBeam, ok):
     cells = B // blk
     contrib = jnp.where(ok[:, None], Iv, 0.0).astype(jnp.float64)
     img_rows = contrib.reshape(cells, blk, K).sum(axis=1)
-    tmp = contrib @ (2.0 * beam.dv)                       # [B]
+    tmp = jnp.sum(contrib * (2.0 * beam.dv), axis=1)      # [B]
     ang_km = tmp.reshape(cells, na, nb).sum(axis=0)       # [k, m]
     i_ang_part = ang_km.T.reshape(-1)                     # flat k + m*na
     return img_rows, i_ang_part
@@ -69,22 +69,41 @@ def get_index(grid, d, y):
     return jnp.where(bad, -1, idx)
 
 
+def split_bf16x3(x):
+    """Exact bfloat16 triple of a float32 array: hi + mid + lo == x.
+
+    Split by bit-masking (truncation): the top 16 bits of an f32 ARE its
+    truncated bfloat16, so each plane is exact and the residual subtraction
+    cannot be algebraically simplified away (XLA folds the rounding-based
+    split ``x - f32(bf16(x))`` to zero).
+    """
+    def trunc(v):
+        t = jax.lax.bitcast_convert_type(
+            jax.lax.bitcast_convert_type(v, jnp.uint32)
+            & jnp.uint32(0xFFFF0000), jnp.float32)
+        return t, t.astype(jnp.bfloat16)
+
+    hi32, hi = trunc(x)
+    r1 = x - hi32
+    mid32, mid = trunc(r1)
+    lo = (r1 - mid32).astype(jnp.bfloat16)
+    return hi, mid, lo
+
+
 def _deposit_matmul(contrib, bins, C: int):
-    """Scatter-free deposit on the MXU: out[c, :] = sum_{b: bins[b]==c}
-    contrib[b, :].
+    """Scatter-free deposit as a matrix product: out[c, :] =
+    sum_{b: bins[b]==c} contrib[b, :].
 
     The one-hot LHS is exact in bfloat16; ``contrib`` is split into three
     bfloat16 planes (hi + mid + lo recover the f32 value to ~2^-26 relative)
     concatenated along K so the one-hot is read once, and the three f32
-    partial sums are re-added. MXU accumulation is f32; adding the one-hot's
+    partial sums are re-added. Accumulation is f32; adding the one-hot's
     exact zeros costs no rounding, so the effective accumulation depth is
     rays-per-cell, same as the scatter.
     """
     B, K = contrib.shape
     oh = (bins[:, None] == jax.lax.broadcasted_iota(jnp.int32, (B, C), 1)
           ).astype(jnp.bfloat16)
-    from raytrace_tpu.ops.deposit_kernel import split_bf16x3
-
     hi, mid, lo = split_bf16x3(contrib.astype(jnp.float32))
     rhs = jnp.concatenate([hi, mid, lo], axis=1)          # [B, 3K]
     out = jax.lax.dot_general(oh, rhs, (((0,), (0,)), ((), ())),
@@ -98,7 +117,8 @@ def bin_images(Iv, res, rays, beam: DeviceBeam, method: int, scale, valid,
 
     ``Iv``: [B, K]; ``res``: TraceResult; ``rays``: dict of [B] entry coords;
     ``valid``: [B] bool (failed rays are excluded, the reference ``continue``s
-    on error); ``deposit``: "scatter" (segment_sum) or "matmul" (one-hot MXU).
+    on error); ``deposit``: "scatter" (segment_sum) or "matmul" (one-hot
+    matrix product).
     Returns (image [nx*ny, K] f64, I_ang [na*nb] f64) partials in
     cell-major layout; the orchestrator transposes to the reference layout.
     """
@@ -127,17 +147,9 @@ def bin_images(Iv, res, rays, beam: DeviceBeam, method: int, scale, valid,
     # relative at 500k rays/chunk) and accumulates across chunks in the
     # caller's float64 buffers.
     def _dep(x2d, dep_bins, C):
-        """One deposit, strategy-dispatched: pallas MXU kernel on TPU with
-        tile-aligned batches, the XLA one-hot matmul otherwise, or the
-        portable segment_sum scatter."""
+        """One deposit, strategy-dispatched: the one-hot matrix product or
+        the segment_sum scatter."""
         if deposit == "matmul":
-            from raytrace_tpu.ops import deposit_kernel as dk
-
-            if (jax.default_backend() == "tpu"
-                    and x2d.shape[0] % dk.DEPOSIT_TILE == 0):
-                # pallas kernel: one-hot stays in VMEM (ops/deposit_kernel)
-                return dk.deposit_tiles(x2d.astype(jnp.float32),
-                                        dep_bins.astype(jnp.int32), C)
             return _deposit_matmul(x2d, dep_bins, C)
         return jax.ops.segment_sum(x2d, dep_bins, num_segments=C)
 
@@ -146,11 +158,11 @@ def bin_images(Iv, res, rays, beam: DeviceBeam, method: int, scale, valid,
     contrib = Iv * jnp.asarray(scale, Iv.dtype)
     image = _dep(contrib, img_bin, nx * ny + 1)[:-1]
 
-    # far-field: sum_v 2 dv Iv then scatter into i3 + i4*na. TPU scatter
-    # cost is per-element (latency-bound), so even this [B]-sized deposit
-    # costs as much as the image one -- route it through the MXU kernel too.
+    # far-field: sum_v 2 dv Iv then scatter into i3 + i4*na. The sum is an
+    # explicit multiply-and-sum: a default-precision f32 matrix-vector
+    # product may run in TF32 on the GPU (~1e-3 relative).
     ang_ok = valid & (i3 >= 0) & (i4 >= 0)
     ang_bin = jnp.where(ang_ok, i3 + i4 * na, na * nb)
-    tmp = Iv @ (2.0 * beam.dv).astype(Iv.dtype)
+    tmp = jnp.sum(Iv * (2.0 * beam.dv).astype(Iv.dtype), axis=1)
     i_ang = _dep(tmp[:, None], ang_bin, na * nb + 1)[:-1, 0]
     return image.astype(jnp.float64), i_ang.astype(jnp.float64)

@@ -1,6 +1,6 @@
-"""Vectorized interpolation / search primitives for the TPU compute path.
+"""Vectorized interpolation / search primitives for the device compute path.
 
-TPU-native equivalents of the reference's scalar search & interpolation
+Batched equivalents of the reference's scalar search & interpolation
 helpers (src/common/RayTraceImageHelper.h:101-220 and
 src/AtomicModel/interp.{h,hpp,cpp}):
 
@@ -14,9 +14,8 @@ src/AtomicModel/interp.{h,hpp,cpp}):
 
 The searches are reformulated as a broadcast compare + sum-reduce instead of
 per-lane bisection: for a sorted grid, ``count(X < Y)`` IS the first index
-with ``X[idx] >= Y``. On TPU this is a dense VPU reduction with no gathers
-and no data-dependent control flow -- far better than 7 rounds of dependent
-scalar loads per lane.
+with ``X[idx] >= Y``: a dense reduction with no gathers and no
+data-dependent control flow.
 """
 
 from __future__ import annotations

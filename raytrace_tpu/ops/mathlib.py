@@ -1,4 +1,4 @@
-"""General math utilities: the TPU rebuild of the reference's ``interp``
+"""General math utilities: the rebuild of the reference's ``interp``
 namespace (src/AtomicModel/interp.{h,hpp,cpp}, SURVEY.md U2).
 
 The reference ships a header math library used across the full production

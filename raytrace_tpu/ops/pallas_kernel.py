@@ -1,1444 +1,327 @@
-"""Pallas TPU stepper kernel -- the performance backend.
+"""Pallas-Triton trace kernel -- the ``pallas`` backend.
 
-This is the TPU-native analogue of the reference's CUDA backend
-(src/RayTraceImageCuda.cu): where CUDA assigns one thread per ray, this
-kernel assigns one (TILE_ROWS, 128) vector tile of rays per grid step
-(default (16,128) = 2048 rays = two (8,128) vregs, i.e. two independent
-dependency chains per vector op -- see the TILE_ROWS note) and runs
-the full three-level propagation loop nest *per tile*, so each tile's trip
-count is set by its own slowest ray rather than the global worst case
-(natural ray order groups rays by entry cell, so tiles are coherent).
+The reference's CUDA backend walks one ray per thread
+(src/RayTraceImageCuda.cu:66-125). This kernel does the same through Pallas
+on the Triton route: one program takes a block of ``BLOCK`` rays, one lane
+per ray, and runs the segment loop and, inside it, the flattened cell walk
+of :func:`raytrace_tpu.ops.fast_stepper.segment_walk` -- the same step
+function the XLA ``lax`` backend runs over a whole chunk. The two differ
+only in the batch (a block here, a chunk there) and in the fetch: each lane
+here reads its cell's channels with gathers from the channel table in
+device memory (ASE: 2 segments x 105x25 cells x 16 channels x 4 B, about
+0.3 MB, so it stays in L2) instead of the one-hot matrix product.
 
-Why this shape: TPUs have no per-lane random access to VMEM except the
-single-tile ``tpu.dynamic_gather`` lane shuffle ((8,128), table width <= 128,
-~50 cycles). The per-cell table fetch is therefore built from it:
+A block's loops run while any of its lanes is active, so divergence is
+bounded by the block rather than by the chunk, and each ray's state stays
+in registers. The per-segment geometry is a small array read with scalar
+loads, so the compiled program is O(1) in the segment count.
 
-* gain tables are repacked per segment as ``[channel, y_row, x(128)]`` --
-  the x dimension (106 points) fits the 128-lane table width;
-* at each cell entry the kernel loops *only over the y-rows actually present
-  in the tile* (a dynamic ``fori`` from min(k2) to max(k2), typically a span
-  of 1-4 rows thanks to ray coherence) and does one lane-shuffle gather +
-  masked accumulate per channel per row;
-* index search: uniform grids (the shipped workloads) use pure arithmetic
-  -- no bisection, no compares against the grid; non-uniform grids run the
-  reference's findindex bisection in-kernel (7 lane-shuffle rounds over
-  per-segment coordinate rows, RayTraceImageHelper.h:131-143).
+Grids: uniform grids index by arithmetic at any width (a gather has no lane
+cap). Non-uniform grids run the reference's findindex bisection
+(RayTraceImageHelper.h:131-143) with gathers over the float64 coordinate
+rows, so a ray entering exactly on a grid line resolves to the same cell as
+the reference's double compares.
 
-Channels fetched per cell (all float32):
-  0-3   n corners n1, n2, n3, n4          (bilinear re-interp of n)
-  4-5   gx1, gxd = gx2-gx1                (d n/dx edge gradients, f64-accurate)
-  6-7   gy1, gyd = gy2-gy1                (d n/dy)
-  8-11  g0 corners                        (gain at line center)
-  12-15 E0 corners                        (emissivity; ASE only)
-  +4    xlo, dxc, ylo, dyc per cell       (non-uniform grids only)
-
-Numerics are float32 with the same precision placement as the reference
-kernel; uniform-grid index arithmetic and f32 grid reconstruction introduce
-ulp-level perturbations of the same class as XLA's FMA contraction, which
-the norm-based 5e-6 golden gate averages out (validated against the
-reference binary's computed images in tests/test_golden.py).
+Interpret mode: on the CPU platform the kernel runs through the Pallas
+interpreter, which is how the tests run it; on the GPU it compiles through
+Triton; any other platform raises.
 """
 
 from __future__ import annotations
 
 import functools
-import os
-import sys
+import math
 from typing import NamedTuple
-
-# the 6-phase x 3-level loop nest produces a deep trace; the default Python
-# recursion limit is too small for JAX's recursive jaxpr processing
-sys.setrecursionlimit(max(sys.getrecursionlimit(), 100000))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
+from raytrace_tpu.ops import fast_stepper as fs
+from raytrace_tpu.ops.stepper import N_SUB, TraceResult
 from raytrace_tpu.structures import RayGain
 
-__all__ = ["pack_gain_tables", "trace_tiles", "TILE_ROWS", "TILE_LANES", "TILE"]
+__all__ = ["PackedGain", "pack_gain_tables", "fits_pallas", "trace_rays",
+           "BLOCK"]
 
-#: rows per ray tile. 16 rows = a (16,128) tile = TWO (8,128) vregs per
-#: vector op, i.e. two INDEPENDENT dependency chains interleaved through
-#: the micro-step loop. The roofline (tools/roofline.py) measured the
-#: micro-step as latency-bound -- a dependent (8,128) f32 op costs
-#: ~13.4 ns on this chip while 8 independent chains stream at ~0.49 ns/op
-#: (tools/vpu_probe.py) -- so the second chain hides latency nearly for
-#: free: the divergence cost of max-over-2048-lanes is only 47.2%->46.5%
-#: tile utilization (census), and tools/bench_tile_rows.py measured
-#: trace -15% on scale16 (0.3284->0.2802 s), -10% on seed_small
-#: (0.2358->0.2114), -14% on ASE_small (0.0475->0.0410). 32 rows = 4
-#: chains measured WORSE everywhere (register pressure), so 2 chains is
-#: the sweet spot. Override with RAYTRACE_TILE_ROWS for A/Bs.
-TILE_ROWS = int(os.environ.get("RAYTRACE_TILE_ROWS", "16"))
-if TILE_ROWS <= 0 or TILE_ROWS % 8 != 0:
-    raise ValueError(
-        f"RAYTRACE_TILE_ROWS={TILE_ROWS!r}: must be a positive multiple of 8 "
-        "(the (8,128) f32 vreg sublane granularity) -- other values surface "
-        "as obscure Mosaic/reshape errors deep in kernel compilation")
-TILE_LANES = 128
-TILE = TILE_ROWS * TILE_LANES
-N_SUB = 3
+#: rays per program on the GPU: one lane per ray, one ray per thread
+#: (4 warps), as the reference's CUDA kernel
+BLOCK = 128
+NUM_WARPS = 4
+
+#: rays per program in interpret mode. The interpreter runs the grid as a
+#: sequential loop on the CPU, so a wide block keeps the test suite's loop
+#: count low; per-lane results do not depend on the block size.
+INTERPRET_BLOCK = 4096
+
+#: the gather offsets are int32: the channel table of all segments must
+#: stay below 2^31 elements
+MAX_TABLE_ELEMS = 2 ** 31 - 1
 
 f32 = jnp.float32
 
+#: columns of the per-segment geometry array
+_GEOM_COLS = 12
+
 
 class PackedGain(NamedTuple):
-    """Host-precomputed kernel tables + static per-segment geometry."""
+    """Device tables + hashable static geometry for the kernel."""
 
-    tables: jax.Array          # [N, NCH(+5), NYPAD*NSLAB, 128] f32 channel tables
-    # static python-side metadata (hashable, used at trace time)
-    x0: tuple                  # per-seg grid origins (float)
-    dxc: tuple                 # per-seg cell widths (float)
-    y0: tuple
-    dyc: tuple
-    nx: tuple                  # true grid sizes (int)
-    ny: tuple
-    absy: tuple                # per-seg half-plane mirror flag (bool)
-    range4: tuple              # per-seg (x0, x1, y0_mirrored, y1) floats
-    use_emis: bool
-    #: x-cell slabs per y-row: grids wider than the 128-lane shuffle table
-    #: split their cell columns into ceil((Nx-1)/128) slabs; table row
-    #: (j, s) lives at index j*nslab + s, so a tile's fetch loop span stays
-    #: proportional to its y-row span (coherent tiles touch 1-2 slabs)
-    nslab: int = 1
-    #: non-uniform grid spacings: the kernel switches the index search to an
-    #: in-kernel findindex bisection over per-segment coordinate rows and
-    #: reads the cell geometry (x_lo, dx_cell, y_lo, dy_cell) from four
-    #: extra fetched channels instead of uniform-grid arithmetic
-    #: (RayTraceImageHelper.h:131-143, 472-494). Requires <= 128 grid
-    #: points per axis (the coordinate rows ride the 128-lane table).
-    nonuniform: bool = False
+    tables: jax.Array    # [N-1, W*ny_cells*nch] f32 channel tables
+    xg: jax.Array        # [N, max Nx] f64 coordinate rows (bisection)
+    yg: jax.Array        # [N, max Ny] f64
+    meta: tuple          # static: fast_stepper.FastTables.meta
+    nch: int
+    ny_cells: int
+    nonuniform: bool
+
+    @property
+    def use_emis(self) -> bool:
+        """The emissivity channels are packed exactly when nch == 16."""
+        return self.nch == 16
 
 
-#: VMEM budget for the resident channel tables (the 16 MiB VMEM also holds
-#: the ray tile, accumulators, and double-buffered blocks)
-_TABLE_VMEM_BUDGET = 8 * 2 ** 20
-
-
-def _is_nonuniform(gains: list[RayGain]) -> bool:
-    """Any segment with non-uniform x/y spacings (same 1e-9 test as
-    fast_stepper.is_uniform -- resolution and packing must agree)."""
-    from raytrace_tpu.ops import fast_stepper
-    return not fast_stepper.is_uniform(gains)
-
-
-def _table_geom(gains: list[RayGain], use_emis: bool, nonuniform: bool):
-    """Channel-table geometry shared by :func:`fits_pallas` and
-    :func:`pack_gain_tables`: (ny_pad, nslab, nch, total_bytes). ``nch``
-    counts the fetched per-cell channels (incl. the 4 geometry channels in
-    nonuniform mode); the +1 coordinate channel only affects the bytes."""
-    ny_pad = max(8, max(g.Ny for g in gains))
-    nslab = max(1, -(-max(g.Nx - 1 for g in gains) // TILE_LANES))
-    nch = (16 if use_emis else 12) + (4 if nonuniform else 0)
-    n_extra = 1 if nonuniform else 0
-    return ny_pad, nslab, nch, (len(gains) * (nch + n_extra) * ny_pad
-                                * nslab * TILE_LANES * 4)
+def _table_elems(gains: list[RayGain], use_emis: bool) -> int:
+    width = max(g.Nx - 1 for g in gains)
+    nyc = max(g.Ny - 1 for g in gains)
+    nch = 16 if use_emis else 12
+    return max(len(gains) - 1, 1) * width * nyc * nch
 
 
 def fits_pallas(gains: list[RayGain], use_emis: bool) -> bool:
-    """True when this kernel's envelope covers the gain geometry: f32-exact
-    cell ids (Nx*Ny < 2^24), channel tables within the VMEM budget, and --
-    for non-uniform spacings -- at most 128 grid points per axis (the
-    findindex coordinate rows ride the 128-lane table). The same
-    conditions pack_gain_tables enforces with hard errors, so backend
-    resolution can fall back to lax-exact instead of raising mid-call."""
-    if any(g.Nx * g.Ny >= 2 ** 24 for g in gains):
-        return False
-    # the y-mirror convention is compile-time in the kernel (no per-step
-    # selects in the hot loop); mixed per-segment conventions -> lax-exact
+    """True when the kernel covers the gain geometry: one y-mirror
+    convention across the traced segments (it is compile-time in the hot
+    loop) and a channel table the int32 gather offsets can index. Backend
+    resolution falls back to lax-exact outside it instead of raising."""
     if len({bool(np.asarray(g.y)[0] >= 0) for g in gains[1:]} or {False}) > 1:
         return False
-    nonuniform = _is_nonuniform(gains)
-    if nonuniform and any(g.Nx > TILE_LANES or g.Ny > TILE_LANES
-                          for g in gains):
-        return False
-    return _table_geom(gains, use_emis, nonuniform)[3] <= _TABLE_VMEM_BUDGET
+    return _table_elems(gains, use_emis) <= MAX_TABLE_ELEMS
 
 
 def pack_gain_tables(gains: list[RayGain], use_emis: bool) -> PackedGain:
-    """Repack gain structs into the kernel's channel-table layout.
-
-    Uniform grids (1e-9 relative tolerance) use pure index arithmetic;
-    non-uniform grids (up to 128 points per axis) get the bisection layout:
-    4 extra per-cell geometry channels + a coordinate-row channel (see
-    PackedGain.nonuniform). Channel values are computed in float64 and
-    rounded once to float32, preserving the reference's double-precision
-    n-gradient rule (RayTraceStructures.h:215-217).
-    """
-    N = len(gains)
-    for g in gains:
-        # cell ids (i1 = k1m1 + k2m1*nx) ride f32 inside the kernel, exact
-        # only below 2^24 -- reject pathological grids instead of silently
-        # corrupting ivl
-        if g.Nx * g.Ny >= 2 ** 24:
-            raise ValueError(
-                "pallas backend requires Nx*Ny < 2^24 (f32-exact cell ids)")
-    # grids wider than the 128-lane shuffle table split their cell columns
-    # into slabs: cell k1 lives at (row j*nslab + k1//128, lane k1%128)
-    nonuniform = _is_nonuniform(gains)
-    if nonuniform and any(g.Nx > TILE_LANES or g.Ny > TILE_LANES
-                          for g in gains):
-        raise ValueError(
-            "pallas backend requires <= 128 grid points per axis for "
-            "non-uniform spacings (coordinate rows ride the 128-lane "
-            "table); use the lax-exact backend")
-    ny_pad, nslab, nch, tab_bytes = _table_geom(gains, use_emis, nonuniform)
-    if tab_bytes > _TABLE_VMEM_BUDGET:
-        raise ValueError(
-            f"pallas gain tables ({tab_bytes/2**20:.1f} MiB) exceed the "
-            f"{_TABLE_VMEM_BUDGET/2**20:.0f} MiB VMEM budget; use the "
-            "lax-exact backend")
-    n_chan = nch + (1 if nonuniform else 0)  # +1 coordinate-row channel
-    tabs = np.zeros((N, n_chan, ny_pad * nslab, TILE_LANES), dtype=np.float32)
-    x0s, dxcs, y0s, dycs, nxs, nys, absys, r4s = [], [], [], [], [], [], [], []
+    """The fast stepper's channel tables at the widest grid's width, plus
+    the f64 coordinate rows the non-uniform bisection reads."""
+    if not fits_pallas(gains, use_emis):
+        raise ValueError("gain geometry outside the pallas kernel's "
+                         "envelope; use the lax-exact backend")
+    width = max(g.Nx - 1 for g in gains)
+    ft = fs.pack_tables(gains, use_emis, width)
+    nxp = max(g.Nx for g in gains)
+    nyp = max(g.Ny for g in gains)
+    xg = np.zeros((len(gains), nxp))
+    yg = np.zeros((len(gains), nyp))
     for s, g in enumerate(gains):
-        Nx, Ny = g.Nx, g.Ny
-        x = np.asarray(g.x, np.float64)
-        y = np.asarray(g.y, np.float64)
-        dx = np.diff(x)
-        dy = np.diff(y)
-        n = np.asarray(g.n, np.float64).reshape(Ny, Nx)
-        g0 = np.asarray(g.g0, np.float64).reshape(Ny, Nx)
-        E0 = (np.asarray(g.E0, np.float64).reshape(Ny, Nx)
-              if g.E0 is not None else np.zeros((Ny, Nx)))
-        gx = (n[:, 1:] - n[:, :-1]) / dx[None, :]          # [Ny, Nx-1]
-        gy = (n[1:, :] - n[:-1, :]) / dy[:, None]          # [Ny-1, Nx]
-
-        def cell(tab):  # corner values per cell (k2-1, k1-1): [Ny-1, Nx-1] views
-            return tab[:-1, :-1], tab[:-1, 1:], tab[1:, :-1], tab[1:, 1:]
-
-        n1, n2, n3, n4 = cell(n)
-        ch = [n1, n2, n3, n4,
-              gx[:-1, :], gx[1:, :] - gx[:-1, :],           # gx1, gxd
-              gy[:, :-1], gy[:, 1:] - gy[:, :-1]]           # gy1, gyd
-        ch += list(cell(g0))
-        if use_emis:
-            ch += list(cell(E0))
-        if nonuniform:
-            # per-cell geometry (the reference reads x[k1-1], the cell
-            # widths, etc. per cell, RayTraceImageHelper.h:480-494)
-            ones_j = np.ones((Ny - 1, 1))
-            ones_i = np.ones((1, Nx - 1))
-            ch += [ones_j * x[:-1][None, :],    # xlo
-                   ones_j * dx[None, :],        # dxc
-                   y[:-1][:, None] * ones_i,    # ylo
-                   dy[:, None] * ones_i]        # dyc
-        for c, t in enumerate(ch):
-            t32 = t.astype(np.float32)
-            for sl in range(-(-(Nx - 1) // TILE_LANES)):
-                cols = t32[:, sl * TILE_LANES:(sl + 1) * TILE_LANES]
-                rows = np.arange(Ny - 1) * nslab + sl
-                tabs[s, c, rows, : cols.shape[1]] = cols
-        if nonuniform:
-            # findindex coordinate rows (channel nch): row 0 = x points,
-            # row 1 = y points, f32-rounded once from the f64 grids
-            tabs[s, nch, 0, :Nx] = x.astype(np.float32)
-            tabs[s, nch, 1, :Ny] = y.astype(np.float32)
-        x0s.append(float(x[0]))
-        dxcs.append(float(dx.mean()))
-        y0s.append(float(y[0]))
-        dycs.append(float(dy.mean()))
-        nxs.append(Nx)
-        nys.append(Ny)
-        r0, r1 = np.float32(x[0]), np.float32(x[-1])
-        r2, r3 = np.float32(y[0]), np.float32(y[-1])
-        absy = bool(r2 >= 0)
-        if absy:
-            r2 = np.float32(-r3)
-        absys.append(absy)
-        r4s.append((float(r0), float(r1), float(r2), float(r3)))
-    return PackedGain(
-        tables=jnp.asarray(tabs),
-        x0=tuple(x0s), dxc=tuple(dxcs), y0=tuple(y0s), dyc=tuple(dycs),
-        nx=tuple(nxs), ny=tuple(nys), absy=tuple(absys), range4=tuple(r4s),
-        use_emis=use_emis, nslab=int(nslab), nonuniform=bool(nonuniform),
-    )
+        xg[s, : g.Nx] = np.asarray(g.x, np.float64)
+        yg[s, : g.Ny] = np.asarray(g.y, np.float64)
+    return PackedGain(tables=ft.tx.reshape(ft.tx.shape[0], -1),
+                      xg=jnp.asarray(xg), yg=jnp.asarray(yg), meta=ft.meta,
+                      nch=ft.nch, ny_cells=ft.ny_cells,
+                      nonuniform=not fs.is_uniform(gains))
 
 
-_LANE_GATHER_DN = jax.lax.GatherDimensionNumbers(
-    offset_dims=(), collapsed_slice_dims=(1,), start_index_map=(1,),
-    operand_batching_dims=(0,), start_indices_batching_dims=(0,))
+def _geom_array(meta: tuple) -> np.ndarray:
+    """[N, 12] f32 per-segment geometry, rounded exactly as
+    fast_stepper.seg_geom rounds the XLA path's constants."""
+    out = np.zeros((len(meta), _GEOM_COLS), np.float32)
+    for s, (x0, dxc, y0, dyc, nx, ny, _absy, r4) in enumerate(meta):
+        out[s] = [x0, dxc, np.float32(1.0) / np.float32(dxc),
+                  y0, dyc, np.float32(1.0) / np.float32(dyc),
+                  *r4, nx, ny]
+    return out
 
 
-def _lane_gather(tab8, idx):
-    """Per-lane table lookup out[r, c] = tab8[r, idx[r, c]].
-
-    Direct ``lax.gather`` in the exact form Mosaic lowers to
-    ``tpu.dynamic_gather`` (the TPU's 128-lane shuffle). jnp.take_along_axis
-    is avoided because it promotes indices to int64 under x64 mode, which
-    Mosaic cannot lower.
-    """
-    return jax.lax.gather(
-        tab8, idx[..., None], _LANE_GATHER_DN, (1, 1),
-        mode=jax.lax.GatherScatterMode.PROMISE_IN_BOUNDS)
-
-
-def _findindex(row8, q, n_pts):
-    """Reference findindex bisection (RayTraceImageHelper.h:131-143):
-    returns upper in [1, n_pts-1] with X[upper] >= q. Fixed 7 rounds
-    (ceil(log2(128))); converged lanes no-op. All values ride f32 (exact
-    small ints, the kernel's safe domain); initial bounds derive from lane
-    data so carries stay in concrete Mosaic layouts."""
-    lanes0 = q * f32(0.0)
-    lower = lanes0
-    upper = lanes0 + (n_pts - jnp.int32(1)).astype(f32)
-    for _ in range(7):
-        active = (upper - lower) > f32(1.5)  # (upper-lower) != 1
-        value = jnp.floor((upper + lower) * f32(0.5))
-        xv = _lane_gather(row8, value.astype(jnp.int32))
-        ge = xv >= q
-        upper = jnp.where(active & ge, value, upper)
-        lower = jnp.where(active & ~ge, value, lower)
+def _bisect(row_ref, seg, q, n, rounds: int):
+    """The reference's findindex (RayTraceImageHelper.h:131-143): upper in
+    [1, n-1] with X[upper] >= q, comparing in f64 against the f64 row.
+    ``rounds`` covers the widest grid; converged lanes no-op."""
+    q64 = q.astype(jnp.float64)
+    lower = jnp.zeros(q.shape, jnp.int32)
+    upper = jnp.zeros(q.shape, jnp.int32) + (n - jnp.int32(1))
+    for _ in range(rounds):
+        active = (upper - lower) > jnp.int32(1)
+        mid = jax.lax.shift_right_logical(upper + lower, jnp.int32(1))
+        ge = row_ref[seg, mid] >= q64
+        upper = jnp.where(active & ge, mid, upper)
+        lower = jnp.where(active & ~ge, mid, lower)
     return upper
 
 
-def _m(mask):
-    """bool -> f32 mask for loop carries (Mosaic cannot yield i1 vectors)."""
-    return jnp.where(mask, f32(1.0), f32(0.0))
+def _bisect_cell(xg_ref, yg_ref, seg, g: fs.SegGeom, rounds: int):
+    """cell_fn for non-uniform grids: bisection indices and the per-cell
+    geometry from the f64 rows (widths differenced in f64, rounded once)."""
+
+    def cell_fn(p_x, y_eff):
+        k1m1 = _bisect(xg_ref, seg, p_x, g.nx, rounds) - jnp.int32(1)
+        k2m1 = _bisect(yg_ref, seg, y_eff, g.ny, rounds) - jnp.int32(1)
+        x_lo = xg_ref[seg, k1m1]
+        y_lo = yg_ref[seg, k2m1]
+        dxc = (xg_ref[seg, k1m1 + jnp.int32(1)] - x_lo).astype(f32)
+        dyc = (yg_ref[seg, k2m1 + jnp.int32(1)] - y_lo).astype(f32)
+        return fs.Cell(k1m1, k2m1, x_lo.astype(f32), y_lo.astype(f32),
+                       dxc, dyc, f32(1.0) / dxc, f32(1.0) / dyc)
+
+    return cell_fn
 
 
-def _b(maskf):
-    """f32 carry -> bool mask."""
-    return maskf > f32(0.5)
-
-
-def _any(mask):
-    """jnp.any workaround: Mosaic's bool-reduce proxy materializes weak f64
-    constants under x64 mode (and bool->float astype recurses in its
-    convert-helper), so select to f32 explicitly and reduce with max."""
-    return jnp.max(jnp.where(mask, f32(1.0), f32(0.0))) > f32(0.0)
-
-
-def _fetch_cells(tab_seg_ref, lane, rowid, work, nch, vals0=None):
-    """Fetch all per-cell channels for the tile via lane-shuffle gathers.
-
-    ``rowid`` indexes the packed table rows (y-row for single-slab grids,
-    ``j*nslab + slab`` for wide ones); the loop covers only the rowids
-    present among active lanes (dynamic range, zero-trip when no lane is
-    active), one ``dynamic_gather`` + masked accumulate per channel per
-    rowid. ``vals0`` supplies the per-channel defaults for masked lanes
-    (zeros when omitted; the merged loop passes the carried cell values).
-    """
-    kf = rowid.astype(f32)
-    jmin = jnp.min(jnp.where(work, kf, f32(1e6))).astype(jnp.int32)
-    jmax = jnp.max(jnp.where(work, kf, f32(-1.0))).astype(jnp.int32)
-    if vals0 is None:
-        vals0 = [jnp.zeros((TILE_ROWS, TILE_LANES), f32) for _ in range(nch)]
-    else:
-        vals0 = list(vals0)
-        assert len(vals0) == nch
-
-    def row_body(j, vals):
-        mask = (rowid == j) & work
-        out = []
-        for c in range(nch):
-            row = tab_seg_ref[c, pl.ds(j, 1), :]             # [1, 128]
-            tab8 = jnp.broadcast_to(row, (TILE_ROWS, TILE_LANES))
-            gath = _lane_gather(tab8, lane)
-            out.append(jnp.where(mask, gath, vals[c]))
-        return out
-
-    # no active lanes -> jmin=1e6 > jmax+1=0 -> zero-trip loop
-    return jax.lax.fori_loop(jmin, jmax + 1, row_body, vals0)
-
-
-#: micro-steps per inner while round. The loop's per-round overhead (the
-#: cross-lane cond reduction + re-yielding the ~18-array carry) is a large
-#: share of the trace cost -- the fetch-channel count measured at only
-#: ~1.5% (16 vs 12 channels, paired rounds), so the micro-step loop, not
-#: the gather stage, dominates. Unrolling trades masked idle work for
-#: rounds, exactly as ops/fast_stepper.FL_UNROLL does on the XLA path;
-#: per-lane step sequences are IDENTICAL (bitwise-equal outputs verified
-#: on TPU at every unroll tried). Paired trace-only A/B (tmp probe, real
-#: TPU, distinct-tables scan protocol, 5 rounds each, NESTED structure):
-#:   scale16 ASE: u1 0.541 / u2 0.466 / u3 0.437 / u4 0.434 / u6 0.410 /
-#:                u8 0.418 s  -> u6 is -24% vs u1
-#:   seed_small:  u1 0.302 / u2 0.265 / u3 0.258 / u6 0.250 s  (-17%)
-FL_UNROLL = 6
-
-#: loop structure of the trace kernel (also settable via the
-#: RAYTRACE_KERNEL_STRUCTURE env var for A/B tooling):
-#:
-#: * "nested" -- per cell entry, one fetch phase then an inner while over
-#:   micro-steps. The inner while syncs the whole (8,128) tile at EVERY
-#:   cell boundary: lanes whose in-cell walk finished idle until the
-#:   tile's slowest lane leaves its cell. Measured true cost on the real
-#:   step records (tools/steps_analysis.py --cellsync): ~3.0x the ideal
-#:   micro-step slots on the ASE class (16% lane utilization at U=1).
-#: * "merged" -- ONE while loop per segment; every round is a masked
-#:   service phase (commit finished walks, sub-length advance, escape,
-#:   fetch new cells for exactly the lanes that need one) followed by
-#:   ``fl_unroll`` micro-steps. Lanes walk their own cells independently,
-#:   so a tile's rounds are set by max-over-lanes of total busy rounds
-#:   rather than a sum of per-cell maxima. Per-lane step sequences are
-#:   IDENTICAL to "nested" (same fetches, same micro-steps, same order --
-#:   only the lane scheduling changes): cell ids and per-lane micro-step
-#:   counts verified bitwise equal; float values differ by compiler FMA-
-#:   contraction ulps (the two programs fuse the same source expressions
-#:   differently -- the established perturbation class of this kernel,
-#:   absorbed by the 5e-6 golden gate).
-#: * "merged-thin" -- the merged loop with the while carry thinned
-#:   (VERDICT r04 item 1): service-only lane state (z, sub-length
-#:   accumulators, commit cell values, pend) lives in VMEM scratch and the
-#:   per-sub output slots flush straight into the output refs, cutting the
-#:   carry from ~49 to ~30 (TILE_ROWS,128) arrays. Identical per-lane ops
-#:   in identical order (the CPU-interpret gate checks BITWISE equality
-#:   with "merged"); the point is register pressure at wider tiles.
-KERNEL_STRUCTURE = os.environ.get("RAYTRACE_KERNEL_STRUCTURE", "merged")
-#: micro-steps per merged-loop round: the service phase runs every round,
-#: so the unroll trades service overhead against end-of-cell idle slots
-#: (a lane idles the rest of a round once its cell walk ends). The slot
-#: model puts the optimum at 2-4, but measured trace cost on the real TPU
-#: is flat-to-falling through u6 (scan-differenced interleaved A/B,
-#: tools/bench_unroll.py): scale16 ASE u4/u5/u6 = 0.334-0.336 s (flat);
-#: seed_small u3 0.2452 / u4 0.2344 / u6 0.2331 s best -- so 6, matching
-#: FL_UNROLL on the nested structure.
-MERGED_UNROLL = int(os.environ.get("RAYTRACE_MERGED_UNROLL", "6"))
-
-
-def _stepper_kernel(smeta_ref, rx_ref, ry_ref, rsx_ref, rsy_ref, rsz_ref,
-                    tab_ref, gvl_ref, evl_ref, ivl_ref,
-                    ex_ref, ey_ref, esx_ref, esy_ref, esz_ref, eesc_ref,
-                    nst_ref=None, scr_refs=None, *, pg_meta, N, dz0, c,
-                    fl_unroll=FL_UNROLL, structure="merged"):
-    """Full multi-segment trace for one (8,128) tile of rays.
-
-    Loop structure (the flattened form proven in ops/fast_stepper.py): per
-    segment, ONE outer cell-walk loop with a per-lane sub-length counter
-    ``iz`` (all three sub-lengths merged), and ONE inner loop taking a
-    single adaptive micro-step per round with the per-propagate-call state
-    (n0, gradients, step box, displacement) carried per lane. The previous
-    nested form (per-(seg,isub) phases x propagate2-while x propagate-while)
-    cost ~prod of per-level batch maxima per tile; the flattened form costs
-    ~max over lanes of *total* micro-steps -- far smaller under divergence.
-    Per-lane micro-step sequences are identical (lockstep-tested).
-
-    The segment loop is a ``lax.fori_loop`` with the per-segment geometry
-    (grid origin/spacing, escape range, grid sizes) read as SMEM scalars
-    from ``smeta_ref`` [N, 12], so the compiled program size is O(1) in N:
-    a python-unrolled build is fine at the shipped N = 3 but Mosaic compile
-    time explodes past tens of minutes by N = 6 (the reference supports
-    N_MAX = 20). Only the y-mirror convention stays compile-time (checked
-    uniform across segments -- it always is: one problem, one grid family).
-
-    The initial direction vector (tan of the angles + backward sign +
-    normalization, RayTraceImageHelper.h:404-418) is computed outside the
-    kernel in XLA for f64-tan parity with the reference.
-    """
-    use_emis = pg_meta["use_emis"]
-    method = pg_meta["method"]
-    nslab = pg_meta.get("nslab", 1)
-    nonuniform = pg_meta.get("nonuniform", False)
-    # per-lane micro-step counting (the cost-feedback reorder lever's
-    # signal, tools/bench_reorder.py): compile-time flag so the production
-    # variant's hot loop carries nothing extra
-    counting = nst_ref is not None
-    # fetched channels: physics (+E0) + the 4 per-cell geometry channels in
-    # nonuniform mode; the coordinate rows live one channel past them
-    gbase = 16 if use_emis else 12
-    nch = gbase + (4 if nonuniform else 0)
-    nseg = N - 1
-
-    # "merged-thin": the carry-thinned merged loop (VERDICT r04 item 1).
-    # Service-only per-lane state (z, the sub-length accumulators, the
-    # commit cell values and the pend mask) moves from the while carry to
-    # VMEM scratch, and the per-sub output slots flush directly into the
-    # output refs (zero-initialized per segment) -- the while carry drops
-    # from ~49 to ~30 (TILE_ROWS,128) arrays, all of them live in the
-    # unrolled step phase anyway. Per-lane numerics are IDENTICAL ops in
-    # identical order; only the storage location changes, so the lockstep
-    # gates must stay bitwise-green vs "merged".
-    thin = structure == "merged-thin"
-    if thin:
-        (z_scr, gvl_scr, evl_scr, ivl_scr, cg0_scr, ci1_scr, ck2_scr,
-         pend_scr) = scr_refs[:8]
-        ce0_scr = scr_refs[8] if use_emis else None
-
-    px = rx_ref[:]
-    py = ry_ref[:]
-    sx = rsx_ref[:]
-    sy = rsy_ref[:]
-    sz = rsz_ref[:]
-    # zero carries derived from lane data, NOT jnp.zeros: a splat constant
-    # gets a replicated Mosaic layout, and the while-body's concrete-layout
-    # yield then needs an invalid concrete->replicated relayout
-    zerosf = px * f32(0.0)
-    escf = zerosf  # escaped mask as f32 carry
-
-    # the per-lane sub-length counter iz, the storage index isub, and the
-    # cell ids all live in the f32 domain (exact for these small ints):
-    # i32 selects in while-loop carries trip a Mosaic relayout bug
-    # ("non-singleton dim replicated in destination but not in source")
-
-    # per-sub stop distances, f32-rounded exactly like the reference's
-    # dz0*(iz+1.0f)/N_SUB (RayTraceImageHelper.h:462)
-    zs_c = [f32(np.float32(np.float32(dz0) * np.float32(s + 1.0)
-                           / np.float32(N_SUB))) for s in range(N_SUB)]
-
-    # the where-chain below enumerates exactly N_SUB thresholds; fail loudly
-    # rather than compute wrong stop distances if N_SUB ever changes
-    assert N_SUB == 3, "zs_of/flush are specialized to N_SUB == 3"
-
-    def zs_of(iz):
-        return jnp.where(iz <= f32(0.5), zs_c[0],
-                         jnp.where(iz <= f32(1.5), zs_c[1], zs_c[2]))
-
-    def isub_of(iz):
-        return (f32(N_SUB - 1) - iz) if method == 1 else iz
-
-    def flush(out, mask, isub, cur):
-        return tuple(jnp.where(mask & (jnp.abs(isub - f32(s)) < f32(0.5)),
-                               cur, out[s])
-                     for s in range(N_SUB))
-
-    # the y-mirror convention is structural (it decides whether |y| feeds
-    # the index math) and uniform across a problem's segments; keep it
-    # compile-time so the hot loop carries no per-step selects for it
-    absy_used = {bool(a) for a in pg_meta["absy"][1:]} or {False}
-    if len(absy_used) > 1:
-        raise NotImplementedError(
-            "mixed per-segment y-mirror conventions: use the lax backend")
-    absy = absy_used.pop()
+def _kernel(geom_ref, px_ref, py_ref, sx_ref, sy_ref, sz_ref, tab_ref,
+            xg_ref, yg_ref, gvl_ref, evl_ref, ivl_ref, ex_ref, ey_ref,
+            esx_ref, esy_ref, esz_ref, esc_ref, *cnt_ref, N, dz0, c, method,
+            use_emis, absy, nonuniform, nch, row, rounds):
+    """Full multi-segment trace of one block of rays (one lane per ray)."""
+    counting = bool(cnt_ref)
+    zs_c = fs.stop_distances(dz0)
+    px = px_ref[...]
 
     def seg_body(i, carry):
-        # the micro-step counter tile joins the carry only when counting,
-        # so the production variant's segment loop threads nothing extra
-        px, py, sx, sy, sz, escf = carry[:6]
-        nstf = carry[6] if counting else None
+        px, py, sx, sy, sz, esc, nst = carry
         ii = (jnp.int32(N - 1) - i) if method == 1 else (i + jnp.int32(1))
-        x0 = smeta_ref[ii, 0]
-        y0 = smeta_ref[ii, 1]
-        dxc = smeta_ref[ii, 2]
-        dyc = smeta_ref[ii, 3]
-        inv_dx = smeta_ref[ii, 4]
-        inv_dy = smeta_ref[ii, 5]
-        r0 = smeta_ref[ii, 6]
-        r1 = smeta_ref[ii, 7]
-        r2 = smeta_ref[ii, 8]
-        r3 = smeta_ref[ii, 9]
-        nx_i = smeta_ref[ii, 10].astype(jnp.int32)
-        ny_i = smeta_ref[ii, 11].astype(jnp.int32)
-        box0 = f32(0.1) * dxc
-        box1 = f32(0.1) * dyc
-
+        m = [geom_ref[ii, k] for k in range(_GEOM_COLS)]
+        g = fs.SegGeom(x0=m[0], dxc=m[1], inv_dx=m[2], y0=m[3], dyc=m[4],
+                       inv_dy=m[5], r0=m[6], r1=m[7], r2=m[8], r3=m[9],
+                       nx=m[10].astype(jnp.int32), ny=m[11].astype(jnp.int32))
+        seg = ii - jnp.int32(1)
         if nonuniform:
-            # per-segment findindex coordinate rows (channel nch: row 0 =
-            # x points, row 1 = y points), broadcast once per segment.
-            # Row starts derive from ii so they are genuine i32 tracers --
-            # concrete jnp.int32 constants flatten differently in the
-            # ref-transform pytree and break the Mosaic load rule
-            tseg = tab_ref.at[jnp.int32(ii)]
-            z0 = ii * jnp.int32(0)
-            xrow8 = jnp.broadcast_to(tseg[nch, pl.ds(z0, 1), :],
-                                     (TILE_ROWS, TILE_LANES))
-            yrow8 = jnp.broadcast_to(tseg[nch, pl.ds(z0 + jnp.int32(1), 1), :],
-                                     (TILE_ROWS, TILE_LANES))
+            cell_fn = _bisect_cell(xg_ref, yg_ref, ii, g, rounds)
+        else:
+            cell_fn = functools.partial(fs.uniform_cell, g)
 
-        findindex = _findindex
+        def fetch(k1m1, k2m1):
+            base = k1m1 * jnp.int32(row) + k2m1 * jnp.int32(nch)
+            return [tab_ref[seg, base + jnp.int32(ch)] for ch in range(nch)]
 
-        def l0_cond(st):
-            return _any(~_b(st["esc"]) & (st["iz"] < f32(N_SUB)))
-
-        def l0_body(st):
-            p_x, p_y = st["px"], st["py"]
-            s_x, s_y, s_z = st["sx"], st["sy"], st["sz"]
-            esc_b = _b(st["esc"])
-            iz = st["iz"]
-            act0 = ~esc_b & (iz < f32(N_SUB))
-            # ---- sub-length advance: z passed 0.995*z_stop(iz) ------------
-            adv = act0 & (st["z"] >= f32(0.995) * zs_of(iz))
-            isub = isub_of(iz)
-            og = flush((st["og0"], st["og1"], st["og2"]), adv, isub, st["gvl"])
-            oe = flush((st["oe0"], st["oe1"], st["oe2"]), adv, isub, st["evl"])
-            oi = flush((st["oi0"], st["oi1"], st["oi2"]), adv, isub, st["ivl"])
-            gvl_cur = jnp.where(adv, f32(0.0), st["gvl"])
-            evl_cur = jnp.where(adv, f32(0.0), st["evl"])
-            ivl_cur = jnp.where(adv, f32(0.0), st["ivl"])
-            iz = jnp.where(adv, iz + f32(1.0), iz)
-            act = act0 & (iz < f32(N_SUB))
-            zs = zs_of(iz)
-            isub = isub_of(iz)
-
-            esc_now = act & ((p_x < r0) | (p_x > r1) | (p_y < r2)
-                             | (p_y > r3) | (s_z * s_z < f32(0.01)))
-            # escaping lanes flush their partial sums for the current
-            # sub-length (the reference accumulates straight into
-            # gvl[ii-1][is], RayTraceImageHelper.h:501-503)
-            og = flush(og, esc_now, isub, gvl_cur)
-            oe = flush(oe, esc_now, isub, evl_cur)
-            oi = flush(oi, esc_now, isub, ivl_cur)
-            esc = esc_b | esc_now
-            work = act & ~esc_now
-
-            y_eff = jnp.abs(p_y) if absy else p_y
-            if nonuniform:
-                # real findindex bisection over the coordinate rows
-                k1m1 = findindex(xrow8, p_x, nx_i).astype(jnp.int32) \
-                    - jnp.int32(1)
-                k2m1 = findindex(yrow8, y_eff, ny_i).astype(jnp.int32) \
-                    - jnp.int32(1)
-            else:
-                # uniform-grid interval index (== findindex on these grids)
-                qx = (p_x - x0) * inv_dx
-                qy = (y_eff - y0) * inv_dy
-                # explicit i32 bounds: jnp.clip materializes int64 scalars
-                # under x64 mode, which Mosaic cannot lower
-                k1m1 = jnp.minimum(jnp.maximum(
-                    jnp.ceil(qx).astype(jnp.int32) - 1, jnp.int32(0)),
-                    nx_i - jnp.int32(2))
-                k2m1 = jnp.minimum(jnp.maximum(
-                    jnp.ceil(qy).astype(jnp.int32) - 1, jnp.int32(0)),
-                    ny_i - jnp.int32(2))
-            if nslab == 1:
-                lane, rowid = k1m1, k2m1
-            else:
-                # k1 -> (slab, lane); the f32 floor-scale is exact (cell ids
-                # < 2^24, 1/128 a power of two) and stays in the f32 domain
-                # Mosaic handles best (see the carry notes above)
-                slab = jnp.floor(k1m1.astype(f32)
-                                 * f32(1.0 / TILE_LANES)).astype(jnp.int32)
-                lane = k1m1 - slab * jnp.int32(TILE_LANES)
-                rowid = k2m1 * jnp.int32(nslab) + slab
-            vals = _fetch_cells(tab_ref.at[jnp.int32(ii)], lane, rowid, work,
-                                nch)
-            n1, n2, n3, n4 = vals[0], vals[1], vals[2], vals[3]
-            gx1, gxd, gy1, gyd = vals[4], vals[5], vals[6], vals[7]
-
-            if nonuniform:
-                # per-cell geometry from the fetched channels (the
-                # reference reads x[k1-1] and the cell widths per cell)
-                xlo = vals[gbase + 0]
-                dxc_l = vals[gbase + 1]
-                ylo = vals[gbase + 2]
-                dyc_l = vals[gbase + 3]
-                inv_dx_l = f32(1.0) / dxc_l   # inf on masked lanes: all
-                inv_dy_l = f32(1.0) / dyc_l   # downstream uses are masked
-                box0_l = f32(0.1) * dxc_l
-                box1_l = f32(0.1) * dyc_l
-            else:
-                xlo = x0 + k1m1.astype(f32) * dxc
-                ylo = y0 + k2m1.astype(f32) * dyc
-                dxc_l, dyc_l = dxc, dyc
-                inv_dx_l, inv_dy_l = inv_dx, inv_dy
-                box0_l, box1_l = box0, box1
-            dxi = (p_x - xlo) * inv_dx_l
-            dyi = (y_eff - ylo) * inv_dy_l
-            dxi2c = f32(1.0) - dxi
-            dyi2c = f32(1.0) - dyi
-            g0c = ((dxi * vals[9] + dxi2c * vals[8]) * dyi2c
-                   + (dxi * vals[11] + dxi2c * vals[10]) * dyi)
-            if use_emis:
-                E0c = ((dxi * vals[13] + dxi2c * vals[12]) * dyi2c
-                       + (dxi * vals[15] + dxi2c * vals[14]) * dyi)
-                E0c = jnp.maximum(E0c, f32(0.0))
-            else:
-                E0c = jnp.zeros_like(g0c)
-
-            exlo = xlo - f32(0.1) * dxc_l
-            exhi = xlo + dxc_l + f32(0.1) * dxc_l
-            eyhi = ylo + dyc_l + f32(0.1) * dyc_l
-            eylo_raw = ylo - f32(0.1) * dyc_l
-            if absy:
-                eylo = jnp.where(k2m1 <= 0, -eyhi, eylo_raw)
-            else:
-                eylo = eylo_raw
-            dz2 = zs - st["z"]
-
-            # ---- flattened in-cell walk: one adaptive micro-step per round
-            # (propagate body, RayTraceImageHelper.h:279-311), with the
-            # per-propagate-call cached state (n0, gradients, box, r) carried
-            # per lane and re-interpolated on commit (propagate2's per-call
-            # re-interp) -----------------------------------------------------
-            def interp_cell(px_, py_, z2_):
-                q_y = jnp.abs(py_) if absy else py_
-                dxi2 = (px_ - xlo) * inv_dx_l
-                dyi2 = (q_y - ylo) * inv_dy_l
-                n0 = ((dxi2 * n2 + (f32(1.0) - dxi2) * n1)
-                      * (f32(1.0) - dyi2)
-                      + (dxi2 * n4 + (f32(1.0) - dxi2) * n3) * dyi2)
-                dndx = gx1 + dyi2 * gxd
-                dndy = gy1 + dxi2 * gyd
-                if absy:
-                    dndy = jnp.where(py_ < 0, -dndy, dndy)
-                box2 = dz2 - z2_
-                return n0, dndx, dndy, box2
-
-            def fl_cond(s1):
-                return jnp.max(s1["act"]) > f32(0.5)
-
-            def fl_one_step(s1):
-                a1 = _b(s1["act"])
-                n0, dndx, dndy = s1["n0"], s1["dndx"], s1["dndy"]
-                box2 = s1["box2"]
-                n = n0 + s1["rx"] * dndx + s1["ry"] * dndy
-                # shared reciprocal + constant-reciprocal multiplies: f32
-                # divides are multi-op on the VPU and this loop ran 11 of
-                # them per micro-step (measured ~2% of trace). a*(1/b) and
-                # x*(1/3) differ from a/b and x/3 by <= 1 ulp -- the same
-                # perturbation class as the f32 grid arithmetic, absorbed
-                # by the lockstep tier's 1e-5 gate and the 5e-6 golden
-                # norms. MUST match ops/fast_stepper.py expression-for-
-                # expression (per-lane step sequences stay in lockstep).
-                invn = f32(1.0) / n
-                t = (s1["sx"] * dndx + s1["sy"] * dndy + f32(1e-12)) * invn
-                fx = dndx * invn - s1["sx"] * t
-                fy = dndy * invn - s1["sy"] * t
-                fz = -s1["sz"] * t
-                step = f32(c) * f32(0.1) / jnp.abs(t)
-                step = jnp.minimum(step, f32(c) * f32(1.00001) * box2)
-                step2 = f32(1.0001) * (box2 - jnp.abs(s1["rz"])) / jnp.abs(s1["sz"])
-                step3 = f32(c) * f32(0.05) * (jnp.abs(s1["sx"]) + f32(5e-4)) \
-                    / (jnp.abs(fx) + f32(1e-8))
-                step4 = f32(c) * f32(0.05) * (jnp.abs(s1["sy"]) + f32(5e-4)) \
-                    / (jnp.abs(fy) + f32(1e-8))
-                step = jnp.minimum(jnp.minimum(step, step2),
-                                   jnp.minimum(step3, step4))
-                st_ = step * t
-                c1 = f32(0.5) * step * step * (
-                    f32(1.0) - st_ * f32(1.0 / 3.0)
-                    + (st_ * st_) * f32(1.0 / 12.0))
-                rx = s1["rx"] + s1["sx"] * step + c1 * fx
-                ry = s1["ry"] + s1["sy"] * step + c1 * fy
-                rz = s1["rz"] + s1["sz"] * step + c1 * fz
-                c2 = step * (f32(1.0) - f32(0.5) * st_
-                             + (st_ * st_) * f32(1.0 / 6.0))
-                ux = s1["sx"] + c2 * fx
-                uy = s1["sy"] + c2 * fy
-                uz = s1["sz"] + c2 * fz
-                inv = jax.lax.rsqrt(ux * ux + uy * uy + uz * uz)
-                ux, uy, uz = ux * inv, uy * inv, uz * inv
-                path = s1["path"] + step
-                n_lag = n
-
-                sel = lambda p, q: jnp.where(a1, p, q)
-                rx = sel(rx, s1["rx"])
-                ry = sel(ry, s1["ry"])
-                rz = sel(rz, s1["rz"])
-                ux = sel(ux, s1["sx"])
-                uy = sel(uy, s1["sy"])
-                uz = sel(uz, s1["sz"])
-                path = sel(path, s1["path"])
-                n_lag = sel(n_lag, s1["n_lag"])
-
-                # propagate-exit test (lagged-n drift check matches the
-                # reference's loop structure)
-                l2_ok = ((jnp.abs(rx) < box0_l) & (jnp.abs(ry) < box1_l)
-                         & (jnp.abs(rz) < box2)
-                         & (jnp.abs(n_lag - n0) < f32(0.05)))
-                commit = a1 & ~l2_ok
-                # commit the propagate call: pos += r, z2 += |rz|, ds += path
-                csel = lambda p, q: jnp.where(commit, p, q)
-                px_ = csel(s1["px"] + rx, s1["px"])
-                py_ = csel(s1["py"] + ry, s1["py"])
-                pz_ = csel(s1["pz"] + rz, s1["pz"])
-                z2_ = csel(s1["z2"] + jnp.abs(rz), s1["z2"])
-                ds_ = csel(s1["ds"] + path, s1["ds"])
-                # propagate2 loop condition on the committed state
-                y2n = jnp.abs(py_) if absy else py_
-                l1_ok = ((px_ > exlo) & (px_ < exhi) & (y2n > eylo)
-                         & (y2n < eyhi) & (z2_ < f32(0.999) * dz2))
-                reinit = commit & l1_ok
-                n0n, dndxn, dndyn, box2n = interp_cell(px_, py_, z2_)
-                rsel = lambda p, q: jnp.where(reinit, p, q)
-                zero = jnp.zeros_like(px_)
-                return {
-                    "px": px_, "py": py_, "pz": pz_,
-                    "sx": ux, "sy": uy, "sz": uz,
-                    "z2": z2_, "ds": ds_,
-                    "rx": rsel(zero, rx), "ry": rsel(zero, ry),
-                    "rz": rsel(zero, rz), "path": rsel(zero, path),
-                    "n0": rsel(n0n, n0), "dndx": rsel(dndxn, dndx),
-                    "dndy": rsel(dndyn, dndy), "box2": rsel(box2n, box2),
-                    "n_lag": rsel(n0n, n_lag),
-                    "act": _m(a1 & (l2_ok | reinit)),
-                    **({"nst": jnp.where(a1, s1["nst"] + f32(1.0),
-                                         s1["nst"])} if counting else {}),
-                }
-
-            def fl_body(s1):
-                # several micro-steps per while round (see FL_UNROLL)
-                for _ in range(fl_unroll):
-                    s1 = fl_one_step(s1)
-                return s1
-
-            zero = jnp.zeros_like(p_x)
-            y20 = jnp.abs(p_y) if absy else p_y
-            l1a0 = work & ((p_x > exlo) & (p_x < exhi) & (y20 > eylo)
-                           & (y20 < eyhi) & (zero < f32(0.999) * dz2))
-            n0_0, dndx_0, dndy_0, box2_0 = interp_cell(p_x, p_y, zero)
-            l1 = jax.lax.while_loop(fl_cond, fl_body, {
-                "px": p_x, "py": p_y, "pz": zero, "sx": s_x, "sy": s_y,
-                "sz": s_z, "z2": zero, "ds": zero,
-                "rx": zero, "ry": zero, "rz": zero, "path": zero,
-                "n0": n0_0, "dndx": dndx_0, "dndy": dndy_0,
-                "box2": box2_0, "n_lag": n0_0, "act": _m(l1a0),
-                **({"nst": st["nst"]} if counting else {})})
-
-            sel = lambda p, q: jnp.where(work, p, q)
-            nz = sel(st["z"] + jnp.abs(l1["pz"]), st["z"])
-            i1 = (k1m1 + k2m1 * nx_i).astype(f32)
-            return {
-                "px": sel(l1["px"], p_x), "py": sel(l1["py"], p_y),
-                "sx": sel(l1["sx"], s_x), "sy": sel(l1["sy"], s_y),
-                "sz": sel(l1["sz"], s_z), "z": nz, "esc": _m(esc),
-                "iz": iz,
-                "gvl": sel(gvl_cur + g0c * l1["ds"], gvl_cur),
-                "evl": sel(evl_cur + E0c * l1["ds"], evl_cur),
-                "ivl": jnp.where(work, i1, ivl_cur),
-                "og0": og[0], "og1": og[1], "og2": og[2],
-                "oe0": oe[0], "oe1": oe[1], "oe2": oe[2],
-                "oi0": oi[0], "oi1": oi[1], "oi2": oi[2],
-                **({"nst": l1["nst"]} if counting else {}),
-            }
-
-        st0 = {
-            "px": px, "py": py, "sx": sx, "sy": sy, "sz": sz,
-            "z": zerosf, "esc": escf, "iz": zerosf,
-            "gvl": zerosf, "evl": zerosf, "ivl": zerosf,
-            "og0": zerosf, "og1": zerosf, "og2": zerosf,
-            "oe0": zerosf, "oe1": zerosf, "oe2": zerosf,
-            "oi0": zerosf, "oi1": zerosf, "oi2": zerosf,
-            **({"nst": nstf} if counting else {}),
-        }
-        st = jax.lax.while_loop(l0_cond, l0_body, st0)
-        iim1 = ii - jnp.int32(1)
+        st = fs.segment_walk(
+            g, cell_fn, fetch,
+            fs.segment_state(px, py, sx, sy, sz, esc,
+                             nst if counting else None),
+            zs_c, c=c, use_emis=use_emis, method=method, absy=absy)
         for s in range(N_SUB):
-            gvl_ref[pl.ds(iim1, 1), s] = st[f"og{s}"][None]
-            evl_ref[pl.ds(iim1, 1), s] = st[f"oe{s}"][None]
-            ivl_ref[pl.ds(iim1, 1), s] = st[f"oi{s}"].astype(jnp.int32)[None]
-        return (st["px"], st["py"], st["sx"], st["sy"], st["sz"], st["esc"]
-                ) + ((st["nst"],) if counting else ())
+            gvl_ref[seg, s, :] = st["out_g"][s]
+            evl_ref[seg, s, :] = st["out_e"][s]
+            ivl_ref[seg, s, :] = st["out_i"][s]
+        return (st["px"], st["py"], st["sx"], st["sy"], st["sz"], st["esc"],
+                st["n_steps"] if counting else nst)
 
-    def seg_body_merged(i, carry):
-        """Merged-loop segment walk (KERNEL_STRUCTURE == "merged").
-
-        One while loop per segment. Each round:
-
-        1. SERVICE (masked): lanes whose cell walk just ended commit it
-           (z += |pz|, gvl/evl += g0c/E0c * ds, ivl = cell id), then the
-           sub-length advance / escape / flush logic runs for lanes between
-           walks, and exactly those lanes fetch their next cell (zero-trip
-           fetch loop when nobody transitions this round) and initialize a
-           fresh walk. Lanes mid-walk are untouched.
-        2. STEP: ``fl_unroll`` adaptive micro-steps for walking lanes.
-
-        Per-lane fetch/walk/advance sequences are identical to the nested
-        structure (the selects reproduce the l0 round semantics lane-
-        locally); only the lane scheduling changes -- a tile no longer
-        syncs at cell boundaries, which the step records measure at ~3x
-        idle slots on the ASE class (tools/steps_analysis.py --cellsync).
-        Cell ids / step counts match nested bitwise; float values differ
-        by compiler FMA-contraction ulps (see KERNEL_STRUCTURE).
-        """
-        px0, py0, sx0, sy0, sz0, escf0 = carry[:6]
-        nstf = carry[6] if counting else None
-        ii = (jnp.int32(N - 1) - i) if method == 1 else (i + jnp.int32(1))
-        iim1 = ii - jnp.int32(1)
-        x0 = smeta_ref[ii, 0]
-        y0 = smeta_ref[ii, 1]
-        dxc = smeta_ref[ii, 2]
-        dyc = smeta_ref[ii, 3]
-        inv_dx = smeta_ref[ii, 4]
-        inv_dy = smeta_ref[ii, 5]
-        r0 = smeta_ref[ii, 6]
-        r1 = smeta_ref[ii, 7]
-        r2 = smeta_ref[ii, 8]
-        r3 = smeta_ref[ii, 9]
-        nx_i = smeta_ref[ii, 10].astype(jnp.int32)
-        ny_i = smeta_ref[ii, 11].astype(jnp.int32)
-
-        if thin:
-            # zero-init this segment's output rows + the service scratch:
-            # slots a lane never flushes (early escape) must read as zero,
-            # exactly like the zero-initialized og/oe/oi carries do
-            zrow = (px0 * f32(0.0))[None]
-            for s in range(N_SUB):
-                gvl_ref[pl.ds(iim1, 1), s] = zrow
-                evl_ref[pl.ds(iim1, 1), s] = zrow
-                ivl_ref[pl.ds(iim1, 1), s] = zrow.astype(jnp.int32)
-            for r_ in ((z_scr, gvl_scr, evl_scr, ivl_scr, cg0_scr,
-                        ci1_scr, ck2_scr, pend_scr)
-                       + ((ce0_scr,) if use_emis else ())):
-                r_[:] = px0 * f32(0.0)
-
-        if nonuniform:
-            # per-segment findindex coordinate rows (see seg_body)
-            tseg = tab_ref.at[jnp.int32(ii)]
-            z0i = ii * jnp.int32(0)
-            xrow8 = jnp.broadcast_to(tseg[nch, pl.ds(z0i, 1), :],
-                                     (TILE_ROWS, TILE_LANES))
-            yrow8 = jnp.broadcast_to(
-                tseg[nch, pl.ds(z0i + jnp.int32(1), 1), :],
-                (TILE_ROWS, TILE_LANES))
-
-        def l0_cond(st):
-            return _any(~_b(st["esc"]) & (st["iz"] < f32(N_SUB)))
-
-        def flush_refs(mask, isub, gvl, evl, ivl):
-            """Thin-mode flush: masked RMW of the per-(segment, sub) output
-            rows in place of the og/oe/oi carried slots. Same select
-            algebra as ``flush`` -- iz is monotone per lane so each slot is
-            written nonzero at most once."""
-            for s in range(N_SUB):
-                m = mask & (jnp.abs(isub - f32(s)) < f32(0.5))
-                og_ = gvl_ref[pl.ds(iim1, 1), s]
-                gvl_ref[pl.ds(iim1, 1), s] = jnp.where(m, gvl, og_[0])[None]
-                oe_ = evl_ref[pl.ds(iim1, 1), s]
-                evl_ref[pl.ds(iim1, 1), s] = jnp.where(m, evl, oe_[0])[None]
-                oi_ = ivl_ref[pl.ds(iim1, 1), s]
-                ivl_ref[pl.ds(iim1, 1), s] = jnp.where(
-                    m, ivl.astype(jnp.int32), oi_[0])[None]
-
-        def l0_body(st):
-            walk = _b(st["act"])
-            pend = _b(pend_scr[:] if thin else st["pend"])
-            esc_b = _b(st["esc"])
-            p_x, p_y = st["px"], st["py"]
-            s_z = st["sz"]
-            zero = p_x * f32(0.0)
-
-            # service-only per-lane state: VMEM scratch in thin mode,
-            # while-carries otherwise (identical values either way)
-            sv = ({"z": z_scr[:], "gvl": gvl_scr[:], "evl": evl_scr[:],
-                   "ivl": ivl_scr[:], "cg0": cg0_scr[:], "ci1": ci1_scr[:],
-                   "ck2": ck2_scr[:],
-                   **({"ce0": ce0_scr[:]} if use_emis else {})}
-                  if thin else st)
-
-            # ---- commit walks that completed since the last service ----
-            fin = pend & ~walk
-            z = jnp.where(fin, sv["z"] + jnp.abs(st["pz"]), sv["z"])
-            gvl = jnp.where(fin, sv["gvl"] + sv["cg0"] * st["ds"], sv["gvl"])
-            evl = (jnp.where(fin, sv["evl"] + sv["ce0"] * st["ds"], sv["evl"])
-                   if use_emis else sv["evl"])
-            ivl = jnp.where(fin, sv["ci1"], sv["ivl"])
-
-            # ---- sub-length advance: z passed 0.995*z_stop(iz) ----------
-            iz = st["iz"]
-            act0 = ~esc_b & (iz < f32(N_SUB)) & ~walk
-            adv = act0 & (z >= f32(0.995) * zs_of(iz))
-            isub = isub_of(iz)
-            if thin:
-                flush_refs(adv, isub, gvl, evl, ivl)
-            else:
-                og = flush((st["og0"], st["og1"], st["og2"]), adv, isub, gvl)
-                oe = flush((st["oe0"], st["oe1"], st["oe2"]), adv, isub, evl)
-                oi = flush((st["oi0"], st["oi1"], st["oi2"]), adv, isub, ivl)
-            gvl = jnp.where(adv, f32(0.0), gvl)
-            evl = jnp.where(adv, f32(0.0), evl)
-            ivl = jnp.where(adv, f32(0.0), ivl)
-            iz = jnp.where(adv, iz + f32(1.0), iz)
-            act = act0 & (iz < f32(N_SUB))
-            zs = zs_of(iz)
-            isub = isub_of(iz)
-
-            esc_now = act & ((p_x < r0) | (p_x > r1) | (p_y < r2)
-                             | (p_y > r3) | (s_z * s_z < f32(0.01)))
-            if thin:
-                flush_refs(esc_now, isub, gvl, evl, ivl)
-            else:
-                og = flush(og, esc_now, isub, gvl)
-                oe = flush(oe, esc_now, isub, evl)
-                oi = flush(oi, esc_now, isub, ivl)
-            esc = esc_b | esc_now
-            work = act & ~esc_now
-
-            # ---- fetch new cells for exactly the transitioning lanes ----
-            y_eff = jnp.abs(p_y) if absy else p_y
-            if nonuniform:
-                k1m1 = _findindex(xrow8, p_x, nx_i).astype(jnp.int32) \
-                    - jnp.int32(1)
-                k2m1 = _findindex(yrow8, y_eff, ny_i).astype(jnp.int32) \
-                    - jnp.int32(1)
-            else:
-                qx = (p_x - x0) * inv_dx
-                qy = (y_eff - y0) * inv_dy
-                k1m1 = jnp.minimum(jnp.maximum(
-                    jnp.ceil(qx).astype(jnp.int32) - 1, jnp.int32(0)),
-                    nx_i - jnp.int32(2))
-                k2m1 = jnp.minimum(jnp.maximum(
-                    jnp.ceil(qy).astype(jnp.int32) - 1, jnp.int32(0)),
-                    ny_i - jnp.int32(2))
-            if nslab == 1:
-                lane, rowid = k1m1, k2m1
-            else:
-                slab = jnp.floor(k1m1.astype(f32)
-                                 * f32(1.0 / TILE_LANES)).astype(jnp.int32)
-                lane = k1m1 - slab * jnp.int32(TILE_LANES)
-                rowid = k2m1 * jnp.int32(nslab) + slab
-            # carried cell channels double as the masked-lane defaults, so
-            # the fetch loop IS the carry update for channels 0-7
-            vals0 = [st["cn1"], st["cn2"], st["cn3"], st["cn4"],
-                     st["cgx1"], st["cgxd"], st["cgy1"], st["cgyd"]] \
-                + [zero] * (nch - 8)
-            vals = _fetch_cells(tab_ref.at[jnp.int32(ii)], lane, rowid,
-                                work, nch, vals0)
-            cn1, cn2, cn3, cn4 = vals[0], vals[1], vals[2], vals[3]
-            cgx1, cgxd, cgy1, cgyd = vals[4], vals[5], vals[6], vals[7]
-
-            if nonuniform:
-                cxlo = jnp.where(work, vals[gbase + 0], st["cxlo"])
-                cdxc = jnp.where(work, vals[gbase + 1], st["cdxc"])
-                cylo = jnp.where(work, vals[gbase + 2], st["cylo"])
-                cdyc = jnp.where(work, vals[gbase + 3], st["cdyc"])
-                cinvdx = jnp.where(work, f32(1.0) / vals[gbase + 1],
-                                   st["cinvdx"])
-                cinvdy = jnp.where(work, f32(1.0) / vals[gbase + 3],
-                                   st["cinvdy"])
-                dxc_l, dyc_l = cdxc, cdyc
-                inv_dx_l, inv_dy_l = cinvdx, cinvdy
-                box0_l = f32(0.1) * cdxc
-                box1_l = f32(0.1) * cdyc
-            else:
-                cxlo = jnp.where(work, x0 + k1m1.astype(f32) * dxc,
-                                 st["cxlo"])
-                cylo = jnp.where(work, y0 + k2m1.astype(f32) * dyc,
-                                 st["cylo"])
-                dxc_l, dyc_l = dxc, dyc
-                inv_dx_l, inv_dy_l = inv_dx, inv_dy
-                box0_l = f32(0.1) * dxc
-                box1_l = f32(0.1) * dyc
-            dxi = (p_x - cxlo) * inv_dx_l
-            dyi = (y_eff - cylo) * inv_dy_l
-            dxi2c = f32(1.0) - dxi
-            dyi2c = f32(1.0) - dyi
-            g0c_n = ((dxi * vals[9] + dxi2c * vals[8]) * dyi2c
-                     + (dxi * vals[11] + dxi2c * vals[10]) * dyi)
-            cg0 = jnp.where(work, g0c_n, sv["cg0"])
-            if use_emis:
-                E0c_n = ((dxi * vals[13] + dxi2c * vals[12]) * dyi2c
-                         + (dxi * vals[15] + dxi2c * vals[14]) * dyi)
-                ce0 = jnp.where(work, jnp.maximum(E0c_n, f32(0.0)),
-                                sv["ce0"])
-            ck2 = jnp.where(work, k2m1.astype(f32), sv["ck2"])
-            ci1 = jnp.where(work, (k1m1 + k2m1 * nx_i).astype(f32),
-                            sv["ci1"])
-            cdz2 = jnp.where(work, zs - z, st["cdz2"])
-
-            # round-invariant cell bounds (same f32 expressions as the
-            # nested structure's per-fetch constants)
-            exlo = cxlo - f32(0.1) * dxc_l
-            exhi = cxlo + dxc_l + f32(0.1) * dxc_l
-            eyhi = cylo + dyc_l + f32(0.1) * dyc_l
-            eylo_raw = cylo - f32(0.1) * dyc_l
-            if absy:
-                eylo = jnp.where(ck2 < f32(0.5), -eyhi, eylo_raw)
-            else:
-                eylo = eylo_raw
-
-            def interp_cell(px_, py_, z2_):
-                q_y = jnp.abs(py_) if absy else py_
-                dxi2 = (px_ - cxlo) * inv_dx_l
-                dyi2 = (q_y - cylo) * inv_dy_l
-                n0 = ((dxi2 * cn2 + (f32(1.0) - dxi2) * cn1)
-                      * (f32(1.0) - dyi2)
-                      + (dxi2 * cn4 + (f32(1.0) - dxi2) * cn3) * dyi2)
-                dndx = cgx1 + dyi2 * cgxd
-                dndy = cgy1 + dxi2 * cgyd
-                if absy:
-                    dndy = jnp.where(py_ < 0, -dndy, dndy)
-                box2 = cdz2 - z2_
-                return n0, dndx, dndy, box2
-
-            # ---- init a fresh walk on the fetched lanes ------------------
-            l1a0 = work & ((p_x > exlo) & (p_x < exhi) & (y_eff > eylo)
-                           & (y_eff < eyhi) & (zero < f32(0.999) * cdz2))
-            n0i, dndxi, dndyi, box2i = interp_cell(p_x, p_y, zero)
-            wsel = lambda new, old_: jnp.where(work, new, old_)
-            s1 = {
-                "px": p_x, "py": p_y, "pz": wsel(zero, st["pz"]),
-                "sx": st["sx"], "sy": st["sy"], "sz": s_z,
-                "z2": wsel(zero, st["z2"]), "ds": wsel(zero, st["ds"]),
-                "rx": wsel(zero, st["rx"]), "ry": wsel(zero, st["ry"]),
-                "rz": wsel(zero, st["rz"]), "path": wsel(zero, st["path"]),
-                "n0": wsel(n0i, st["n0"]), "dndx": wsel(dndxi, st["dndx"]),
-                "dndy": wsel(dndyi, st["dndy"]),
-                # thin: box2 == cdz2 - z2 invariantly (init box2i =
-                # cdz2 - 0, reinit box2n = cdz2 - z2_), so the step loop
-                # recomputes it from the carried cdz2/z2 -- one subtract
-                # replaces a carried array, bitwise the same value
-                **({} if thin else {"box2": wsel(box2i, st["box2"])}),
-                "n_lag": wsel(n0i, st["n_lag"]),
-                "act": _m(walk | l1a0),
-                **({"nst": st["nst"]} if counting else {}),
-            }
-
-            def fl_one_step(s1):
-                a1 = _b(s1["act"])
-                n0, dndx, dndy = s1["n0"], s1["dndx"], s1["dndy"]
-                box2 = (cdz2 - s1["z2"]) if thin else s1["box2"]
-                n = n0 + s1["rx"] * dndx + s1["ry"] * dndy
-                # MUST match ops/fast_stepper.py expression-for-expression
-                # (per-lane step sequences stay in lockstep)
-                invn = f32(1.0) / n
-                t = (s1["sx"] * dndx + s1["sy"] * dndy + f32(1e-12)) * invn
-                fx = dndx * invn - s1["sx"] * t
-                fy = dndy * invn - s1["sy"] * t
-                fz = -s1["sz"] * t
-                step = f32(c) * f32(0.1) / jnp.abs(t)
-                step = jnp.minimum(step, f32(c) * f32(1.00001) * box2)
-                step2 = f32(1.0001) * (box2 - jnp.abs(s1["rz"])) \
-                    / jnp.abs(s1["sz"])
-                step3 = f32(c) * f32(0.05) * (jnp.abs(s1["sx"]) + f32(5e-4)) \
-                    / (jnp.abs(fx) + f32(1e-8))
-                step4 = f32(c) * f32(0.05) * (jnp.abs(s1["sy"]) + f32(5e-4)) \
-                    / (jnp.abs(fy) + f32(1e-8))
-                step = jnp.minimum(jnp.minimum(step, step2),
-                                   jnp.minimum(step3, step4))
-                st_ = step * t
-                c1 = f32(0.5) * step * step * (
-                    f32(1.0) - st_ * f32(1.0 / 3.0)
-                    + (st_ * st_) * f32(1.0 / 12.0))
-                rx = s1["rx"] + s1["sx"] * step + c1 * fx
-                ry = s1["ry"] + s1["sy"] * step + c1 * fy
-                rz = s1["rz"] + s1["sz"] * step + c1 * fz
-                c2 = step * (f32(1.0) - f32(0.5) * st_
-                             + (st_ * st_) * f32(1.0 / 6.0))
-                ux = s1["sx"] + c2 * fx
-                uy = s1["sy"] + c2 * fy
-                uz = s1["sz"] + c2 * fz
-                inv = jax.lax.rsqrt(ux * ux + uy * uy + uz * uz)
-                ux, uy, uz = ux * inv, uy * inv, uz * inv
-                path = s1["path"] + step
-                n_lag = n
-
-                sel = lambda p, q: jnp.where(a1, p, q)
-                rx = sel(rx, s1["rx"])
-                ry = sel(ry, s1["ry"])
-                rz = sel(rz, s1["rz"])
-                ux = sel(ux, s1["sx"])
-                uy = sel(uy, s1["sy"])
-                uz = sel(uz, s1["sz"])
-                path = sel(path, s1["path"])
-                n_lag = sel(n_lag, s1["n_lag"])
-
-                l2_ok = ((jnp.abs(rx) < box0_l) & (jnp.abs(ry) < box1_l)
-                         & (jnp.abs(rz) < box2)
-                         & (jnp.abs(n_lag - n0) < f32(0.05)))
-                commit = a1 & ~l2_ok
-                csel = lambda p, q: jnp.where(commit, p, q)
-                px_ = csel(s1["px"] + rx, s1["px"])
-                py_ = csel(s1["py"] + ry, s1["py"])
-                pz_ = csel(s1["pz"] + rz, s1["pz"])
-                z2_ = csel(s1["z2"] + jnp.abs(rz), s1["z2"])
-                ds_ = csel(s1["ds"] + path, s1["ds"])
-                y2n = jnp.abs(py_) if absy else py_
-                l1_ok = ((px_ > exlo) & (px_ < exhi) & (y2n > eylo)
-                         & (y2n < eyhi) & (z2_ < f32(0.999) * cdz2))
-                reinit = commit & l1_ok
-                n0n, dndxn, dndyn, box2n = interp_cell(px_, py_, z2_)
-                rsel = lambda p, q: jnp.where(reinit, p, q)
-                zero_ = jnp.zeros_like(px_)
-                return {
-                    "px": px_, "py": py_, "pz": pz_,
-                    "sx": ux, "sy": uy, "sz": uz,
-                    "z2": z2_, "ds": ds_,
-                    "rx": rsel(zero_, rx), "ry": rsel(zero_, ry),
-                    "rz": rsel(zero_, rz), "path": rsel(zero_, path),
-                    "n0": rsel(n0n, n0), "dndx": rsel(dndxn, dndx),
-                    "dndy": rsel(dndyn, dndy),
-                    **({} if thin else {"box2": rsel(box2n, box2)}),
-                    "n_lag": rsel(n0n, n_lag),
-                    "act": _m(a1 & (l2_ok | reinit)),
-                    **({"nst": jnp.where(a1, s1["nst"] + f32(1.0),
-                                         s1["nst"])} if counting else {}),
-                }
-
-            for _ in range(fl_unroll):
-                s1 = fl_one_step(s1)
-
-            if thin:
-                # persist the service-only state to scratch; none of it is
-                # live through the unrolled step phase above
-                z_scr[:] = z
-                gvl_scr[:] = gvl
-                evl_scr[:] = evl
-                ivl_scr[:] = ivl
-                cg0_scr[:] = cg0
-                ci1_scr[:] = ci1
-                ck2_scr[:] = ck2
-                pend_scr[:] = _m(walk | work)
-                if use_emis:
-                    ce0_scr[:] = ce0
-                return {
-                    "px": s1["px"], "py": s1["py"], "sx": s1["sx"],
-                    "sy": s1["sy"], "sz": s1["sz"],
-                    "esc": _m(esc), "iz": iz,
-                    "act": s1["act"],
-                    "rx": s1["rx"], "ry": s1["ry"], "rz": s1["rz"],
-                    "path": s1["path"], "z2": s1["z2"], "ds": s1["ds"],
-                    "pz": s1["pz"], "n0": s1["n0"], "dndx": s1["dndx"],
-                    "dndy": s1["dndy"], "n_lag": s1["n_lag"],
-                    "cn1": cn1, "cn2": cn2, "cn3": cn3, "cn4": cn4,
-                    "cgx1": cgx1, "cgxd": cgxd, "cgy1": cgy1, "cgyd": cgyd,
-                    "cxlo": cxlo, "cylo": cylo, "cdz2": cdz2,
-                    **({"cdxc": cdxc, "cdyc": cdyc,
-                        "cinvdx": cinvdx, "cinvdy": cinvdy}
-                       if nonuniform else {}),
-                    **({"nst": s1["nst"]} if counting else {}),
-                }
-
-            return {
-                "px": s1["px"], "py": s1["py"], "sx": s1["sx"],
-                "sy": s1["sy"], "sz": s1["sz"],
-                "z": z, "esc": _m(esc), "iz": iz,
-                "gvl": gvl, "evl": evl, "ivl": ivl,
-                "og0": og[0], "og1": og[1], "og2": og[2],
-                "oe0": oe[0], "oe1": oe[1], "oe2": oe[2],
-                "oi0": oi[0], "oi1": oi[1], "oi2": oi[2],
-                "act": s1["act"], "pend": _m(walk | work),
-                "rx": s1["rx"], "ry": s1["ry"], "rz": s1["rz"],
-                "path": s1["path"], "z2": s1["z2"], "ds": s1["ds"],
-                "pz": s1["pz"], "n0": s1["n0"], "dndx": s1["dndx"],
-                "dndy": s1["dndy"], "box2": s1["box2"],
-                "n_lag": s1["n_lag"],
-                "cn1": cn1, "cn2": cn2, "cn3": cn3, "cn4": cn4,
-                "cgx1": cgx1, "cgxd": cgxd, "cgy1": cgy1, "cgyd": cgyd,
-                "cg0": cg0, "cxlo": cxlo, "cylo": cylo,
-                "ck2": ck2, "ci1": ci1, "cdz2": cdz2,
-                **({"ce0": ce0} if use_emis else {}),
-                **({"cdxc": cdxc, "cdyc": cdyc,
-                    "cinvdx": cinvdx, "cinvdy": cinvdy}
-                   if nonuniform else {}),
-                **({"nst": s1["nst"]} if counting else {}),
-            }
-
-        zseg = px0 * f32(0.0)
-        if thin:
-            st0 = {
-                "px": px0, "py": py0, "sx": sx0, "sy": sy0, "sz": sz0,
-                "esc": escf0, "iz": zseg, "act": zseg,
-                "rx": zseg, "ry": zseg, "rz": zseg, "path": zseg,
-                "z2": zseg, "ds": zseg, "pz": zseg,
-                "n0": zseg, "dndx": zseg, "dndy": zseg, "n_lag": zseg,
-                "cn1": zseg, "cn2": zseg, "cn3": zseg, "cn4": zseg,
-                "cgx1": zseg, "cgxd": zseg, "cgy1": zseg, "cgyd": zseg,
-                "cxlo": zseg, "cylo": zseg, "cdz2": zseg,
-                **({"cdxc": zseg, "cdyc": zseg,
-                    "cinvdx": zseg, "cinvdy": zseg} if nonuniform else {}),
-                **({"nst": nstf} if counting else {}),
-            }
-            st = jax.lax.while_loop(l0_cond, l0_body, st0)
-            # output rows were flushed in place by flush_refs
-            return (st["px"], st["py"], st["sx"], st["sy"], st["sz"],
-                    st["esc"]) + ((st["nst"],) if counting else ())
-        st0 = {
-            "px": px0, "py": py0, "sx": sx0, "sy": sy0, "sz": sz0,
-            "z": zseg, "esc": escf0, "iz": zseg,
-            "gvl": zseg, "evl": zseg, "ivl": zseg,
-            "og0": zseg, "og1": zseg, "og2": zseg,
-            "oe0": zseg, "oe1": zseg, "oe2": zseg,
-            "oi0": zseg, "oi1": zseg, "oi2": zseg,
-            "act": zseg, "pend": zseg,
-            "rx": zseg, "ry": zseg, "rz": zseg, "path": zseg,
-            "z2": zseg, "ds": zseg, "pz": zseg,
-            "n0": zseg, "dndx": zseg, "dndy": zseg, "box2": zseg,
-            "n_lag": zseg,
-            "cn1": zseg, "cn2": zseg, "cn3": zseg, "cn4": zseg,
-            "cgx1": zseg, "cgxd": zseg, "cgy1": zseg, "cgyd": zseg,
-            "cg0": zseg, "cxlo": zseg, "cylo": zseg,
-            "ck2": zseg, "ci1": zseg, "cdz2": zseg,
-            **({"ce0": zseg} if use_emis else {}),
-            **({"cdxc": zseg, "cdyc": zseg, "cinvdx": zseg, "cinvdy": zseg}
-               if nonuniform else {}),
-            **({"nst": nstf} if counting else {}),
-        }
-        st = jax.lax.while_loop(l0_cond, l0_body, st0)
-        for s in range(N_SUB):
-            gvl_ref[pl.ds(iim1, 1), s] = st[f"og{s}"][None]
-            evl_ref[pl.ds(iim1, 1), s] = st[f"oe{s}"][None]
-            ivl_ref[pl.ds(iim1, 1), s] = st[f"oi{s}"].astype(jnp.int32)[None]
-        return (st["px"], st["py"], st["sx"], st["sy"], st["sz"], st["esc"]
-                ) + ((st["nst"],) if counting else ())
-
-    body = seg_body if structure == "nested" else seg_body_merged
-    carry = jax.lax.fori_loop(
-        jnp.int32(0), jnp.int32(nseg), body,
-        (px, py, sx, sy, sz, escf) + ((zerosf,) if counting else ()))
-    px, py, sx, sy, sz, escf = carry[:6]
-
-    ex_ref[:] = px
-    ey_ref[:] = py
-    esx_ref[:] = sx
-    esy_ref[:] = sy
-    esz_ref[:] = sz
-    eesc_ref[:] = _b(escf).astype(jnp.int32)
+    init = (px, py_ref[...], sx_ref[...], sy_ref[...], sz_ref[...],
+            jnp.zeros(px.shape, jnp.bool_), jnp.zeros(px.shape, jnp.int32))
+    px, py, sx, sy, sz, esc, nst = jax.lax.fori_loop(
+        jnp.int32(0), jnp.int32(N - 1), seg_body, init)
+    ex_ref[...] = px
+    ey_ref[...] = py
+    esx_ref[...] = sx
+    esy_ref[...] = sy
+    esz_ref[...] = sz
+    esc_ref[...] = esc.astype(jnp.int32)
     if counting:
-        nst_ref[:] = carry[6].astype(jnp.int32)
+        cnt_ref[0][...] = nst
 
 
-@functools.partial(jax.jit, static_argnames=("meta_key", "N", "dz0", "c",
-                                              "interpret", "counts",
-                                              "fl_unroll", "structure"))
-def _trace_tiles_jit(rx, ry, ra, rb, tables, meta_key, N, dz0, c, interpret,
-                     counts=False, fl_unroll=FL_UNROLL,
-                     structure=KERNEL_STRUCTURE):
-    pg_meta = dict(meta_key)
-    T = rx.shape[0]
+def interpret_default() -> bool:
+    """Interpret mode is the CPU test mode; the GPU compiles the kernel
+    through Triton. Decided here only."""
+    platform = jax.default_backend()
+    if platform == "cpu":
+        return True
+    if platform == "gpu":
+        return False
+    raise RuntimeError(
+        f"the pallas trace kernel has no lowering for platform {platform!r}")
+
+
+#: rays padded onto the end of a batch start outside every gain grid, so
+#: they escape in the first round of the first segment
+_PAD_X = 3.0e38
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "meta", "nch", "nyc", "nonuniform", "N", "dz0", "c", "method",
+    "use_emis", "counts", "block", "interpret"))
+def _trace_jit(x, y, a, b, tables, xg, yg, *, meta, nch, nyc, nonuniform, N,
+               dz0, c, method, use_emis, counts, block, interpret):
+    B = x.shape[0]
+    Bp = -(-B // block) * block
+    pad = Bp - B
+    px = jnp.pad(x.astype(f32), (0, pad), constant_values=_PAD_X)
+    py = jnp.pad(y.astype(f32), (0, pad))
+    sx, sy, sz = fs.initial_direction(jnp.pad(a, (0, pad)),
+                                      jnp.pad(b, (0, pad)), method)
     nseg = N - 1
-    method = pg_meta["method"]
+    absy = {bool(m[6]) for m in meta[1:]}.pop()
+    row = nyc * nch
+    rounds = max(1, math.ceil(math.log2(max(xg.shape[1], yg.shape[1]))))
+    geom = jnp.asarray(_geom_array(meta))
 
-    # initial direction: tan in f64 then round, like the reference's double
-    # tan() (RayTraceImageHelper.h:409-418)
-    sx = jnp.tan((f32(1e-3) * ra).astype(jnp.float64)).astype(jnp.float32)
-    sy = jnp.tan((f32(1e-3) * rb).astype(jnp.float64)).astype(jnp.float32)
-    sz = jnp.full(sx.shape, f32(1.0))
-    if method == 1:
-        sx, sy, sz = -sx, -sy, -sz
-    inv = f32(1.0) / jnp.sqrt(sx * sx + sy * sy + sz * sz)
-    sx, sy, sz = sx * inv, sy * inv, sz * inv
-
-    kernel = functools.partial(_stepper_kernel, pg_meta=pg_meta, N=N,
-                               dz0=dz0, c=c, fl_unroll=fl_unroll,
-                               structure=structure)
-    grid = (T,)
-
-    # per-segment geometry scalars for the kernel's SMEM-driven segment
-    # loop, f32-rounded exactly as the previously-unrolled constants were
-    smeta_np = np.zeros((N, 12), np.float32)
-    for s in range(N):
-        smeta_np[s, 0] = np.float32(pg_meta["x0"][s])
-        smeta_np[s, 1] = np.float32(pg_meta["y0"][s])
-        smeta_np[s, 2] = np.float32(pg_meta["dxc"][s])
-        smeta_np[s, 3] = np.float32(pg_meta["dyc"][s])
-        smeta_np[s, 4] = np.float32(1.0) / np.float32(pg_meta["dxc"][s])
-        smeta_np[s, 5] = np.float32(1.0) / np.float32(pg_meta["dyc"][s])
-        smeta_np[s, 6:10] = [np.float32(v) for v in pg_meta["range4"][s]]
-        smeta_np[s, 10] = np.float32(pg_meta["nx"][s])
-        smeta_np[s, 11] = np.float32(pg_meta["ny"][s])
-    smeta = jnp.asarray(smeta_np)
-    # index maps derive zeros from the grid index (t * 0) so they stay i32:
-    # python-int constants are traced as i64 under x64 mode, which Mosaic
-    # cannot return from the index function
-    def _imap(n):
-        def f(t):
-            t32 = jnp.asarray(t, jnp.int32)
-            return (t32,) + (t32 * 0,) * (n - 1)
-        return f
-
-    ray_spec = pl.BlockSpec((1, TILE_ROWS, TILE_LANES), _imap(3),
-                            memory_space=pltpu.VMEM)
-    out_big = pl.BlockSpec((1, nseg, N_SUB, TILE_ROWS, TILE_LANES), _imap(5),
-                           memory_space=pltpu.VMEM)
-    out_one = pl.BlockSpec((1, TILE_ROWS, TILE_LANES), _imap(3),
-                           memory_space=pltpu.VMEM)
-
-    # "merged-thin": service-only lane state lives in VMEM scratch instead
-    # of the while carry (one (TILE_ROWS,128) f32 buffer each; see
-    # _stepper_kernel). Scratch refs arrive after the outputs.
-    n_scr = (9 if pg_meta["use_emis"] else 8) if structure == "merged-thin" \
-        else 0
-
-    def k(smeta_ref, rx_ref, ry_ref, sx_ref, sy_ref, sz_ref, tab_ref,
-          gvl_ref, evl_ref, ivl_ref,
-          ex_ref, ey_ref, esx_ref, esy_ref, esz_ref, eesc_ref,
-          *rest):
-        nst_ref = rest[0] if counts else None
-        scr_refs = rest[1:] if counts else rest
-        # i32 leading index: a bare python 0 traces as i64 under x64 mode,
-        # which trips tpu.memref_slice once the segment dim is sliced
-        # dynamically inside the kernel
-        z = jnp.int32(0)
-        kernel(smeta_ref, rx_ref.at[z], ry_ref.at[z], sx_ref.at[z],
-               sy_ref.at[z], sz_ref.at[z], tab_ref,
-               gvl_ref.at[z], evl_ref.at[z], ivl_ref.at[z],
-               ex_ref.at[z], ey_ref.at[z], esx_ref.at[z], esy_ref.at[z],
-               esz_ref.at[z], eesc_ref.at[z],
-               None if nst_ref is None else nst_ref.at[z],
-               scr_refs if scr_refs else None)
-
-    def _imap_zero(n):
-        def f(t):
-            t32 = jnp.asarray(t, jnp.int32)
-            return (t32 * 0,) * n
-        return f
-
-    # the tables block is the full array and must NOT advance with the grid
-    tab_spec = pl.BlockSpec(tables.shape, _imap_zero(4), memory_space=pltpu.VMEM)
-    smeta_spec = pl.BlockSpec(smeta.shape, _imap_zero(2),
-                              memory_space=pltpu.SMEM)
+    full = lambda arr: pl.BlockSpec(  # noqa: E731
+        arr.shape, lambda i: (0,) * arr.ndim)
+    lanes = pl.BlockSpec((block,), lambda i: (i,))
+    per_seg = pl.BlockSpec((nseg, N_SUB, block), lambda i: (0, 0, i))
+    seg_f32 = jax.ShapeDtypeStruct((nseg, N_SUB, Bp), jnp.float32)
+    lane_f32 = jax.ShapeDtypeStruct((Bp,), jnp.float32)
+    lane_i32 = jax.ShapeDtypeStruct((Bp,), jnp.int32)
+    out_shape = [seg_f32, seg_f32, jax.ShapeDtypeStruct((nseg, N_SUB, Bp),
+                                                        jnp.int32),
+                 lane_f32, lane_f32, lane_f32, lane_f32, lane_f32, lane_i32]
+    out_specs = [per_seg, per_seg, per_seg] + [lanes] * 6
+    if counts:
+        out_shape.append(lane_i32)
+        out_specs.append(lanes)
+    kernel = functools.partial(
+        _kernel, N=N, dz0=dz0, c=c, method=method, use_emis=use_emis,
+        absy=absy, nonuniform=nonuniform, nch=nch, row=row, rounds=rounds)
     outs = pl.pallas_call(
-        k,
-        grid=grid,
-        out_shape=(
-            jax.ShapeDtypeStruct((T, nseg, N_SUB, TILE_ROWS, TILE_LANES), jnp.float32),
-            jax.ShapeDtypeStruct((T, nseg, N_SUB, TILE_ROWS, TILE_LANES), jnp.float32),
-            jax.ShapeDtypeStruct((T, nseg, N_SUB, TILE_ROWS, TILE_LANES), jnp.int32),
-            jax.ShapeDtypeStruct((T, TILE_ROWS, TILE_LANES), jnp.float32),
-            jax.ShapeDtypeStruct((T, TILE_ROWS, TILE_LANES), jnp.float32),
-            jax.ShapeDtypeStruct((T, TILE_ROWS, TILE_LANES), jnp.float32),
-            jax.ShapeDtypeStruct((T, TILE_ROWS, TILE_LANES), jnp.float32),
-            jax.ShapeDtypeStruct((T, TILE_ROWS, TILE_LANES), jnp.float32),
-            jax.ShapeDtypeStruct((T, TILE_ROWS, TILE_LANES), jnp.int32),
-        ) + ((jax.ShapeDtypeStruct((T, TILE_ROWS, TILE_LANES), jnp.int32),)
-             if counts else ()),
-        in_specs=[smeta_spec, ray_spec, ray_spec, ray_spec, ray_spec,
-                  ray_spec, tab_spec],
-        out_specs=(out_big, out_big, out_big, out_one, out_one, out_one,
-                   out_one, out_one, out_one)
-        + ((out_one,) if counts else ()),
-        scratch_shapes=[pltpu.VMEM((TILE_ROWS, TILE_LANES), jnp.float32)
-                        for _ in range(n_scr)],
+        kernel,
+        grid=(Bp // block,),
+        in_specs=[full(geom), lanes, lanes, lanes, lanes, lanes,
+                  full(tables), full(xg), full(yg)],
+        out_specs=out_specs,
+        out_shape=out_shape,
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
         interpret=interpret,
-    )(smeta, rx, ry, sx, sy, sz, tables)
-    return outs
+        name="raytrace_trace",
+    )(geom, px, py, sx, sy, sz, tables, xg, yg)
+    gvl, evl, ivl, ex, ey, esx, esy, esz, esc = (o for o in outs[:9])
+    cut = lambda t: t[..., :B]  # noqa: E731
+    to_rays = lambda t: jnp.transpose(cut(t), (2, 0, 1))  # noqa: E731
+    esx, esy, esz = cut(esx), cut(esy), cut(esz)
+    exit_a, exit_b = fs.exit_angles(esx, esy, esz)
+    res = TraceResult(gvl=to_rays(gvl), evl=to_rays(evl), ivl=to_rays(ivl),
+                      exit_x=cut(ex), exit_y=cut(ey), exit_a=exit_a,
+                      exit_b=exit_b, escaped=cut(esc) != 0,
+                      perp=esz * esz < f32(0.01))
+    if counts:
+        return res, cut(outs[9])
+    return res
 
 
-def meta_key_of(pg: PackedGain, method: int) -> tuple:
-    """The hashable static-metadata key that specializes _trace_tiles_jit.
+def trace_rays(rays, N: int, dz0: float, pg: PackedGain, method: int,
+               c: float = 0.5, counts: bool = False,
+               interpret: bool | None = None, block: int | None = None):
+    """Trace a batch of rays through the kernel.
 
-    Single source of truth: benchmark tools (tools/bench_reorder.py) call
-    _trace_tiles_jit directly and must specialize the kernel exactly the
-    way trace_tiles does -- a hand-built copy would silently go stale when
-    PackedGain grows a field."""
-    return (
-        ("x0", pg.x0), ("dxc", pg.dxc), ("y0", pg.y0), ("dyc", pg.dyc),
-        ("nx", pg.nx), ("ny", pg.ny), ("absy", pg.absy),
-        ("range4", tuple(tuple(r) for r in pg.range4)),
-        ("use_emis", pg.use_emis), ("method", method),
-        ("nslab", pg.nslab), ("nonuniform", pg.nonuniform),
-    )
+    ``rays``: dict of [B] arrays x/y/a/b (any B: the batch is padded to
+    whole blocks with rays that escape at once, and cut back). Returns the
+    TraceResult, plus the per-lane micro-step counts [B] i32 with
+    ``counts`` (the cost-feedback reorder signal; a separately compiled
+    variant, so the default carries nothing extra).
 
-
-def trace_tiles(rays, N: int, dz0: float, pg: PackedGain, method: int,
-                c: float = 0.5, interpret: bool | None = None,
-                counts: bool = False, fl_unroll: int | None = None,
-                structure: str | None = None):
-    """Run the Pallas stepper over [T, 8, 128]-tiled ray batches.
-
-    ``rays``: dict of float32 [T, 8, 128] arrays x/y/a/b.
-    Returns (gvl, evl, ivl [T,nseg,3,8,128], exit px/py/sx/sy/sz, escaped
-    [, per-lane micro-step counts i32 when ``counts`` -- the cost-feedback
-    reorder signal; a separately-compiled variant, zero cost when off]).
-
-    ``interpret``: run the kernel through the Pallas interpreter (plain XLA
-    ops) instead of Mosaic. Defaults to True off-TPU, which is what lets the
-    multi-chip path (parallel/sharding.py) run this backend on the virtual
-    CPU mesh with identical semantics.
-
-    ``structure``/``fl_unroll``: loop structure (KERNEL_STRUCTURE default)
-    and micro-steps per round (structure-specific default; see FL_UNROLL /
-    MERGED_UNROLL). Per-lane step SEQUENCES (cell ids, step counts) are
-    identical across all combinations; float outputs are bitwise identical
-    across ``fl_unroll`` values within a structure, but nested vs merged
-    differ by compiler FMA-contraction ulps (see the KERNEL_STRUCTURE note
-    above) -- scheduling knobs, not semantics knobs.
+    ``interpret`` defaults to :func:`interpret_default`; ``block`` to
+    BLOCK when compiled and INTERPRET_BLOCK (capped at the batch's power
+    of two) when interpreted.
     """
+    if N < 2:
+        raise ValueError("the pallas kernel needs N >= 2 segments")
     if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if structure is None:
-        structure = KERNEL_STRUCTURE
-    if structure not in ("merged", "merged-thin", "nested"):
-        raise ValueError(f"unknown kernel structure {structure!r} "
-                         "(expected 'merged', 'merged-thin' or 'nested')")
-    if fl_unroll is None:
-        fl_unroll = FL_UNROLL if structure == "nested" else MERGED_UNROLL
-    meta_key = meta_key_of(pg, method)
-    return _trace_tiles_jit(rays["x"], rays["y"], rays["a"], rays["b"],
-                            pg.tables, meta_key, N, float(dz0), float(c),
-                            bool(interpret), counts=bool(counts),
-                            fl_unroll=int(fl_unroll),
-                            structure=str(structure))
+        interpret = interpret_default()
+    B = rays["x"].shape[0]
+    if block is None:
+        block = (min(INTERPRET_BLOCK, 1 << max(B - 1, 1).bit_length())
+                 if interpret else BLOCK)
+    return _trace_jit(rays["x"], rays["y"], rays["a"], rays["b"], pg.tables,
+                      pg.xg, pg.yg, meta=pg.meta, nch=pg.nch,
+                      nyc=pg.ny_cells, nonuniform=pg.nonuniform, N=N,
+                      dz0=float(dz0), c=float(c), method=method,
+                      use_emis=pg.use_emis, counts=bool(counts),
+                      block=int(block), interpret=bool(interpret))
+

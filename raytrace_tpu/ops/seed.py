@@ -1,4 +1,4 @@
-"""Seed-beam intensity evaluation (TPU rebuild of ``calc_seed_inline``,
+"""Seed-beam intensity evaluation (rebuild of ``calc_seed_inline``,
 src/common/RayTraceImageHelper.h:230-247).
 
 The seed profile is separable: ``I(x,y,a,b,v) = f0 fx(x) fy(y) fa(a) fb(b) fv(v)``

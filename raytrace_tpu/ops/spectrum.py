@@ -1,6 +1,6 @@
 """Spectral amplification: closed-form integration of dI/dz = j + g I.
 
-TPU rebuild of the per-ray spectrum loops in ``RayTrace_calc_ray``
+Rebuild of the per-ray spectrum loops in ``RayTrace_calc_ray``
 (src/common/RayTraceImageHelper.h:534-581):
 
 * emissivity path (ASE): per (segment, sub-length) the lineshape row
@@ -11,14 +11,13 @@ TPU rebuild of the per-ray spectrum loops in ``RayTrace_calc_ray``
   a single ``exp`` applied (RayTraceImageHelper.h:569-581).
 
 Precision: the reference computes this in double. ``dtype=float64``
-reproduces that (f64 is emulated on TPU; ~0.2 s per ASE_small call).
-``dtype=float32`` keeps the log-gain as an unevaluated two-float (hi, lo)
+reproduces that. ``dtype=float32`` keeps the log-gain as an unevaluated two-float (hi, lo)
 pair instead: ``exp`` amplifies *argument* rounding by a factor of |g|
 (d exp/exp = dg), so a plain float32 exp of a float32 log-gain would be off
 by ~|g|*6e-8 relative. Dekker-split products (each f32*f32 exactly as
 hi+lo) + error-free two-sum accumulation + an (hi, lo)-aware range-reduced
 exp keep the relative error at ~1e-7 independent of |g| with zero float64
-arithmetic in the hot path (f64 is VPU-emulated on TPU at ~10x cost).
+arithmetic in the hot path.
 """
 
 from __future__ import annotations
@@ -70,8 +69,8 @@ def _split_prod(a, b):
     return p, err
 
 
-# Horner coefficients as f32 reciprocal constants: the true f32 divide is
-# multi-op on the VPU and this chain runs per (ray, k, segment, sub-length);
+# Horner coefficients as f32 reciprocal constants: this chain runs per
+# (ray, k, segment, sub-length);
 # f * float32(1/k) differs from f / k by <= 1 ulp per term, far below the
 # polynomial's 5e-9 truncation (same trick the steppers use for their
 # constant divides). Measured accuracy unchanged (test_exp_fast2_accuracy).
@@ -81,9 +80,9 @@ _RCP = {k: float(np.float32(1.0 / k)) for k in (2, 3, 4, 5, 6, 7)}
 def _exp_fast2(hi, lo):
     """Unbiased ~1e-7-relative exp of the two-float value hi + lo, pure f32.
 
-    The TPU float32 exp intrinsic carries a systematic ~-1e-6 relative bias
-    (measured), which compounds across the per-sub-length amplification
-    chain and shows up in the golden norm gate. This version range-reduces
+    A library float32 exp of the rounded hi alone carries the argument
+    rounding, and any bias it has compounds across the per-sub-length
+    amplification chain into the golden norm gate. This version range-reduces
     g = n ln2 + f with |f| <= ~ln2/2 using the split-ln2 constants (exact
     n*LN2_HI), evaluates e^f with an f32 Horner Taylor (degree 7, truncation
     5e-9), and scales by 2^n exactly via ldexp.
@@ -133,16 +132,13 @@ def _exp_fast(g64):
 
 
 def amplify(res: TraceResult, Iv0, gv, N: int, use_emis: bool,
-            dtype=jnp.float64, packed_gv=None):
+            dtype=jnp.float64):
     """Apply the amplification ODE along each ray's recorded path.
 
     ``Iv0``: [B, K] initial (seed) intensity, already zeroed for escaped
     rays. ``gv``: [N-1, cells, K] float32 lineshape tables for segments
     1..N-1 (segment 0 is never read: the kernel always uses the
     high-energy-side segment, RayTraceImageHelper.h:430-441).
-    ``packed_gv``: optional ops.pallas_amplify.PackedGv of the same tables;
-    when given (pallas backend, f32 gain-only path) the log-gain
-    accumulation runs as a fused Pallas kernel instead of XLA row-gathers.
     Returns [B, K] of ``dtype``.
     """
     nseg = max(N - 1, 0)
@@ -183,15 +179,6 @@ def amplify(res: TraceResult, Iv0, gv, N: int, use_emis: bool,
 
     # gain-only fast path: accumulate the total log-gain, one exp
     # (RayTraceImageHelper.h:569-581)
-    if f32_mode and packed_gv is not None:
-        # fused pallas kernel: windowed one-hot MXU row fetch + in-kernel
-        # two-float MAC -- same ~1e-7 accuracy as the XLA accumulation
-        # below (ops/pallas_amplify.py), minus the 6 slow XLA row-gathers
-        from raytrace_tpu.ops import pallas_amplify
-
-        hi, lo = pallas_amplify.log_gain_fused(res.ivl, res.gvl, packed_gv,
-                                               res.gvl.shape[2])
-        return Iv * _exp_fast2(hi, lo)
     if f32_mode:
         # two-float accumulation: Dekker products + two-sum, all f32
         hi = jnp.zeros((B, K), dtype=jnp.float32)

@@ -1,4 +1,4 @@
-"""Batched ray-propagation stepper (the TPU equivalent of the reference's
+"""Batched ray-propagation stepper (the batched equivalent of the reference's
 single-ray kernel ``RayTrace_calc_ray``, src/common/RayTraceImageHelper.h:379-513).
 
 Design (SURVEY.md section 7 "key representation decisions" #1):

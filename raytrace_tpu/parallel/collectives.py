@@ -1,4 +1,4 @@
-"""Collective operations: the TPU-native equivalents of the reference's MPI
+"""Collective operations: the JAX equivalents of the reference's MPI
 layer (SURVEY.md section 2.4 P5/P6).
 
 Mapping:

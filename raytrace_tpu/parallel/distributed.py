@@ -1,4 +1,4 @@
-"""Multi-process startup/shutdown shims: the TPU-native equivalent of the
+"""Multi-process startup/shutdown shims: the JAX equivalent of the
 reference's MPI bootstrap (src/MPI_helpers.h:9-27).
 
 Mapping:
@@ -38,7 +38,7 @@ def startup(coordinator_address: str | None = None,
             process_id: int | None = None) -> None:
     """Initialize the process group (MPI_Init analogue).
 
-    With no arguments, defers to JAX's automatic cluster detection (TPU pod
+    With no arguments, defers to JAX's automatic cluster detection (cluster
     metadata / launcher env vars); single-process runs where nothing is
     detected remain single-process, mirroring the reference's no-MPI build.
     """

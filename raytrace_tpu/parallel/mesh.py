@@ -1,9 +1,9 @@
 """Device-mesh helpers for multi-chip runs.
 
 The reference distributes work across MPI ranks with a stride contract and
-reduces images with MPI_Allreduce (SURVEY.md section 2.4). The TPU-native
+reduces images with MPI_Allreduce (SURVEY.md section 2.4). The JAX
 equivalent is a 1-D ``jax.sharding.Mesh`` over the ray batch ("rays" axis):
-rays ride data parallelism, image reductions ride ICI ``psum``. A mesh of
+rays ride data parallelism, image reductions ride a ``psum`` over the interconnect. A mesh of
 size 1 degrades to the single-chip path, mirroring the reference's no-MPI
 shims (src/MPI_helpers.h:41-52).
 """

@@ -8,10 +8,11 @@ The reference's multi-device story (SURVEY.md section 2.4):
   (N_start/N_parallel) + MPI_Allreduce of the image buffers
   (src/RayTraceStructures.cpp:1603-1646).
 
-TPU-native equivalent: rays are stride-decomposed across a 1-D mesh exactly
-like the MPI contract (device d of D takes rays d, d+D, 2D, ...); each device
+Equivalent here: rays are stride-decomposed across a 1-D mesh exactly like
+the MPI contract (device d of D takes rays d, d+D, 2D, ...); each device
 runs the whole chunked scan pipeline on its shard, and the accumulated
-images meet in a single ``jax.lax.psum`` riding ICI at the end of the call.
+images meet in a single ``jax.lax.psum`` over the interconnect at the end
+of the call.
 A 1-device mesh degrades to the serial path (the no-MPI shim analogue).
 """
 
@@ -69,9 +70,6 @@ def make_sharded_pipeline(cfg: dict, trace_fn, mesh: Mesh):
         ray_grids, beam, dseed_u = ray_tracer.unpack_bundle(cfg, pack)
         if dseed_u is None:
             dseed_u = dseed
-        if cfg.get("fused_amplify"):
-            from raytrace_tpu.ops import pallas_amplify
-            gv_tables = pallas_amplify.pack_gv(gv_tables)
         image0 = jnp.zeros((cfg["img_cells"], K), dtype=jnp.float64)
         iang0 = jnp.zeros((cfg["na_nb"],), dtype=jnp.float64)
 
@@ -112,7 +110,7 @@ def make_sharded_pipeline(cfg: dict, trace_fn, mesh: Mesh):
         (image, i_ang, fail3), ys = jax.lax.scan(
             body, (image0, iang0, jnp.zeros((3,), jnp.int32)),
             (xs, prev_counts) if reorder else xs)
-        # single end-of-call image reduction over ICI -- the psum analogue of
+        # single end-of-call image reduction -- the psum analogue of
         # the reference's MPI_Allreduce(DOUBLE, SUM)
         image = jax.lax.psum(image, RAY_AXIS)
         i_ang = jax.lax.psum(i_ang, RAY_AXIS)
@@ -139,15 +137,14 @@ def make_sharded_split_pipeline(cfg: dict, trace_fn, mesh: Mesh):
     The reference's multi-GPU path drives the identical fastest
     configuration per device (src/RayTraceImage.cpp:396-405); the
     single-chip pipeline ships the gv lineshape tables over the link while
-    the trace kernel runs (measured ~12-25 ms on ASE-class calls,
-    ROADMAP.md), and mesh calls were one dispatch and paid that cost.
-    Here the call becomes: dispatch the sharded TRACE (pack + trace
+    the trace kernel runs, and mesh calls were one dispatch and paid that
+    cost. Here the call becomes: dispatch the sharded TRACE (pack + trace
     tables, replicated), ship gv during it (device_put to a replicated
     NamedSharding -- the transfer rides the link while every shard
     traces), then dispatch the sharded AMPLIFY+BIN on the resident
     per-shard trace results. The stacked trace results stay sharded over
     the ray axis between the two dispatches (spec P(None, RAY_AXIS):
-    leading dim = chunk scan step, dim 1 = rays); nothing crosses ICI
+    leading dim = chunk scan step, dim 1 = rays); nothing crosses devices
     until the end-of-call psum, exactly like the single-dispatch path.
     Gated by prepare_sharded to ASE-class trace stacks, same policy as
     single-chip."""
@@ -183,9 +180,6 @@ def make_sharded_split_pipeline(cfg: dict, trace_fn, mesh: Mesh):
         ray_grids, beam, dseed_u = ray_tracer.unpack_bundle(cfg, pack)
         if dseed_u is None:
             dseed_u = dseed
-        if cfg.get("fused_amplify"):
-            from raytrace_tpu.ops import pallas_amplify
-            gv_tables = pallas_amplify.pack_gv(gv_tables)
         image0 = jnp.zeros((cfg["img_cells"], K), dtype=jnp.float64)
         iang0 = jnp.zeros((cfg["na_nb"],), dtype=jnp.float64)
 
@@ -256,8 +250,8 @@ def prepare_sharded(problem: CreateImageProblem, mesh: Mesh,
 
     Validation, backend resolution (the fastest backend runs per shard,
     exactly like the reference's multi-GPU path drives its CUDA kernel,
-    RayTraceImage.cpp:396-405; off-TPU the pallas kernel executes via the
-    interpreter), table packing and the deposit policy all come from
+    RayTraceImage.cpp:396-405; on the CPU platform the pallas kernel runs
+    through the interpreter), table packing and the deposit policy all come from
     ray_tracer.prepare_common -- one implementation, so the single-chip
     and multi-chip paths cannot diverge on them."""
     beam = problem.euv_beam
@@ -281,33 +275,26 @@ def prepare_sharded(problem: CreateImageProblem, mesh: Mesh,
     auto_chunk = chunk_size is None
     if auto_chunk:
         if backend == "pallas":
-            # per-(8,128)-tile trip counts bound divergence inside the tile,
-            # so bigger chunks amortize better (same policy as single-device)
+            # the kernel bounds divergence per block, so the chunk only sets
+            # the scan length (same policy as single-device)
             chunk_size = 65536
         else:
             chunk_size = 16384 if B_total < 2_000_000 else 32768
     chunk = min(chunk_size, max(B_total, 1))
     chunk = max(D, (chunk // D) * D)
     if backend == "pallas":
-        # each device's chunk share must be whole (8,128) ray tiles
-        per_dev = max(pk.TILE, (chunk // D // pk.TILE) * pk.TILE)
+        # each device's chunk share is whole kernel blocks
+        per_dev = max(pk.BLOCK, (chunk // D // pk.BLOCK) * pk.BLOCK)
         chunk = per_dev * D
         if auto_chunk and B_total > chunk:
-            # minimize last-chunk padding (same measured policy as the
-            # single-device path in models/ray_tracer.prepare_pipeline)
+            # minimize last-chunk padding (same policy as the single-device
+            # path in models/ray_tracer.prepare_pipeline)
             n = math.ceil(B_total / chunk)
-            align = pk.TILE * D
+            align = pk.BLOCK * D
             chunk = min(chunk, math.ceil(math.ceil(B_total / n) / align)
                         * align)
     n_chunks = math.ceil(B_total / chunk) if B_total else 0
 
-    # opt-in only: measured slower than XLA's row-gathers (see
-    # models/ray_tracer.py and ROADMAP.md dead-ends)
-    fused_amplify = (os.environ.get("RAYTRACE_FUSED_AMPLIFY") == "1"
-                     and backend == "pallas" and not use_emis
-                     and problem.N > 1
-                     and jnp.dtype(spectrum_dtype) == jnp.float32
-                     and K <= 128)
     # cost-feedback reorder (ray_tracer.reorder_chunk_core, run per
     # shard): needs the pallas counts variant; silently inert elsewhere --
     # the same fall-back-to-what-runs policy as the single-chip path
@@ -331,23 +318,13 @@ def prepare_sharded(problem: CreateImageProblem, mesh: Mesh,
              and trace_bytes <= ray_tracer._SPLIT_MAX_BYTES
              and jax.process_count() == 1
              and os.environ.get("RAYTRACE_NO_SPLIT") != "1")
-    # kernel knobs join the key exactly as in the single-chip
-    # prepare_pipeline: the compiled shard_map pipeline bakes in the
-    # structure/unroll/tile shape it was traced with, and a mid-process
-    # knob flip (the bench_tile_rows-style A/B patching) must not be
-    # served a stale pipeline
-    if backend == "pallas":
-        kernel_knobs = (pk.KERNEL_STRUCTURE, pk.MERGED_UNROLL, pk.FL_UNROLL,
-                        pk.TILE_ROWS)
-    else:
-        kernel_knobs = None
     cfg_key = ("sharded", id(mesh), backend, problem.N, float(beam.dz), K,
                method, use_emis, dims, float(scale),
                str(jnp.dtype(spectrum_dtype)), float(c), chunk, n_chunks,
                bin_deposit,
                problem.N_start, problem.N_parallel, fast_meta, pallas_meta,
-               pack_layout, beam_scalars, seed_f0, fused_amplify, reorder,
-               reorder_row, split, kernel_knobs)
+               pack_layout, beam_scalars, seed_f0, reorder, reorder_row,
+               split)
     cfg = dict(N=problem.N, dz=float(beam.dz), K=K, method=method,
                use_emis=use_emis, dims=dims, scale=float(scale),
                spectrum_dtype=spectrum_dtype, c=float(c), dense=False,
@@ -357,8 +334,7 @@ def prepare_sharded(problem: CreateImageProblem, mesh: Mesh,
                N_parallel=problem.N_parallel, fast_meta=fast_meta,
                pallas_meta=pallas_meta,
                pack_layout=pack_layout, beam_scalars=beam_scalars,
-               seed_f0=seed_f0, fused_amplify=fused_amplify,
-               reorder=reorder, reorder_row=reorder_row, split=split)
+               seed_f0=seed_f0, reorder=reorder, reorder_row=reorder_row, split=split)
     if cfg_key not in _SHARDED_CACHE:
         if backend == "pallas":
             trace_fn = ray_tracer.make_pallas_trace_fn(cfg, counts=reorder)

@@ -1,4 +1,4 @@
-"""Core data structures for the TPU-native ray-trace framework.
+"""Core data structures for the JAX ray-trace framework.
 
 These are plain-Python / numpy containers mirroring the *semantics* (not the
 layout) of the reference structs in ``src/RayTraceStructures.h``:
@@ -13,7 +13,7 @@ layout) of the reference structs in ``src/RayTraceStructures.h``:
   ``intensity_struct`` (RayTraceStructures.h:360-466), the production app's
   accumulators (dormant in the miniapp but part of the API surface).
 
-Unlike the reference (array-of-structs with raw pointers) the TPU design keeps
+Unlike the reference (array-of-structs with raw pointers) this design keeps
 host-side containers in numpy and converts to stacked, padded device pytrees
 (struct-of-arrays) only at the compute boundary -- see
 :func:`raytrace_tpu.models.ray_tracer.DeviceProblem`.
@@ -365,7 +365,7 @@ class IntensityStep:
 
     Dormant in the miniapp benchmark but part of the production API: defines
     the MPI reduction contract (sum over ranks of every image buffer,
-    RayTraceStructures.cpp:1603-1646). The TPU equivalent of ``sum_reduce``
+    RayTraceStructures.cpp:1603-1646). The device equivalent of ``sum_reduce``
     lives in :mod:`raytrace_tpu.parallel.collectives`.
     """
 
@@ -424,7 +424,7 @@ class IntensityStep:
             self.W += rhs.W
 
     def sum_reduce(self, mesh=None, axis=None) -> None:
-        """Sum accumulators across devices (TPU analogue of the reference's
+        """Sum accumulators across devices (device analogue of the reference's
         MPI_Allreduce-based intensity_step_struct::sum_reduce), instrumented
         with the reference's profiler region name
         (RayTraceStructures.cpp:1610)."""

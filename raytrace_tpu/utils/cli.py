@@ -1,11 +1,11 @@
-"""CreateImage benchmark CLI -- the TPU rebuild of ``src/CreateImage.cpp``.
+"""CreateImage benchmark CLI -- the rebuild of ``src/CreateImage.cpp``.
 
 Usage (mirrors the reference flags, Readme.txt:42-59 / CreateImageHelpers.h:50-96):
 
     python -m raytrace_tpu.utils.cli [options] file1.dat [file2.dat ...]
       -methods=lax,lax-exact     backends to benchmark (default: all
                                  available methods -- lax-exact, lax,
-                                 pallas when running on TPU, plus the
+                                 pallas when running on a GPU, plus the
                                  mesh-sharded multichip path when more
                                  than one device is present)
       -iterations=N              timed calls per method (default 5)
@@ -13,8 +13,7 @@ Usage (mirrors the reference flags, Readme.txt:42-59 / CreateImageHelpers.h:50-9
       -multichip                 also run the mesh-sharded path
       -spectrum=f64|f32          amplification precision (default f32:
                                  the two-float f32 path matches f64
-                                 quality on the shipped goldens and is
-                                 the measured-fastest TPU mode; f64
+                                 quality on the shipped goldens; f64
                                  forces the reference's double math)
       -stream=N                  also benchmark serving-mode throughput:
                                  N independent work units (distinct gain
@@ -26,7 +25,7 @@ Usage (mirrors the reference flags, Readme.txt:42-59 / CreateImageHelpers.h:50-9
                                  seconds = pass wall time / N, pipeline
                                  fill included) plus a "...+stream.steady"
                                  row of inter-completion spacing with the
-                                 pipeline full (the weather-immune
+                                 pipeline full (the steady-state
                                  throughput statistic; bench.py "ARTIFACT
                                  SCHEMA"); no golden row (the tables are
                                  perturbed per call). No reference
@@ -44,11 +43,11 @@ Usage (mirrors the reference flags, Readme.txt:42-59 / CreateImageHelpers.h:50-9
                                  rank runs the whole problem; timings are
                                  all-gathered and errors summed across ranks
                                  exactly like the reference's MPI protocol.
-                                 Workers run on CPU (one chip cannot be
-                                 shared); on a real multi-host pod, launch
-                                 one process per host with the cluster
-                                 launcher instead -- ``distributed.startup()``
-                                 auto-detects the pod environment.
+                                 On a GPU host each rank gets one card
+                                 (rank r takes card r, or the r-th entry of
+                                 CUDA_VISIBLE_DEVICES), so P must not exceed
+                                 the cards; with JAX_PLATFORMS=cpu in the
+                                 environment the group runs on the CPU.
 
 Per file x method: a warmup call (the JIT analogue of the reference's GPU
 warmup fixture, CreateImage.cpp:118-132), ``iterations`` timed calls,
@@ -129,7 +128,7 @@ def run_tests(filename: str, options: Options) -> int:
     pout.write(f"\nRunning tests for {filename}\n\n")
     # "Default is all availible methods" (CreateImageHelpers.h:61): with no
     # -methods= flag, benchmark every backend this host can run at speed --
-    # on TPU that includes the flagship pallas kernel, and with >1 device
+    # on a GPU that includes the pallas kernel, and with >1 device
     # the mesh-sharded path too (the reference's defaults likewise include
     # Cuda-MultiGPU when several GPUs exist, CreateImageHelpers.h:62).
     import jax
@@ -215,7 +214,7 @@ def run_tests(filename: str, options: Options) -> int:
                          TimingStats.of(_gather_times(per_call))))
             # steady-state inter-completion spacing (pipeline-full
             # throughput; fill excluded -- see bench.py ARTIFACT SCHEMA):
-            # the weather-immune serving-mode statistic
+            # the steady-state serving-mode statistic
             yields = [y for d in detail for y in d["yield_s"]]
             if yields:
                 rows.append((f"{label}{tag}.steady",
@@ -272,6 +271,26 @@ def run_tests(filename: str, options: Options) -> int:
     return n_errors
 
 
+def worker_env(base, rank: int, nprocs: int, port: int) -> dict:
+    """Environment of process-group worker ``rank``: the group's
+    coordinates, and on a GPU host one card per rank -- card ``rank``, or
+    the rank-th entry of an inherited CUDA_VISIBLE_DEVICES list -- so each
+    JAX process reserves memory on its own card only. A group asked onto
+    the CPU (JAX_PLATFORMS=cpu, as the tests run it) gets no card."""
+    env = dict(base)
+    env.update(RAYTRACE_COORD=f"localhost:{port}",
+               RAYTRACE_NPROCS=str(nprocs), RAYTRACE_PROC_ID=str(rank))
+    if env.get("JAX_PLATFORMS", "") != "cpu":
+        visible = env.get("CUDA_VISIBLE_DEVICES")
+        cards = (visible.split(",") if visible
+                 else [str(i) for i in range(nprocs)])
+        if rank >= len(cards):
+            raise SystemExit(f"-nprocs={nprocs} needs {nprocs} cards; "
+                             f"CUDA_VISIBLE_DEVICES lists {len(cards)}")
+        env["CUDA_VISIBLE_DEVICES"] = cards[rank]
+    return env
+
+
 def _launch_process_group(argv, nprocs: int) -> int:
     """Spawn the local P-process group (the ``mpirun -np P`` analogue).
 
@@ -286,13 +305,7 @@ def _launch_process_group(argv, nprocs: int) -> int:
     retries on a fresh port instead of hanging the group."""
 
     def _spawn(pid: int, port: int):
-        env = dict(os.environ)
-        env.update(RAYTRACE_COORD=f"localhost:{port}",
-                   RAYTRACE_NPROCS=str(nprocs), RAYTRACE_PROC_ID=str(pid),
-                   # one real chip cannot be shared by P processes; the
-                   # replicated-benchmark group runs on CPU like the
-                   # reference's workstation mpirun runs
-                   RAYTRACE_FORCE_CPU="1")
+        env = worker_env(os.environ, pid, nprocs, port)
         return subprocess.Popen(
             [sys.executable, "-m", "raytrace_tpu.utils.cli", *argv], env=env)
 
@@ -343,9 +356,8 @@ def _maybe_join_process_group() -> None:
         return
     import jax
 
-    if os.environ.get("RAYTRACE_FORCE_CPU") == "1":
-        # must run before backend init; the env-var spelling is ignored
-        # once the TPU plugin is importable
+    if os.environ.get("JAX_PLATFORMS") == "cpu":
+        # the CPU group, by explicit request (the tests); before backend init
         jax.config.update("jax_platforms", "cpu")
     from raytrace_tpu.parallel import distributed
 
@@ -353,6 +365,13 @@ def _maybe_join_process_group() -> None:
         coordinator_address=os.environ["RAYTRACE_COORD"],
         num_processes=int(os.environ["RAYTRACE_NPROCS"]),
         process_id=int(os.environ["RAYTRACE_PROC_ID"]))
+    # every rank names its devices, so a launch can be checked to hold one
+    # card per process
+    devs = jax.local_devices()
+    print(f"rank {jax.process_index()}/{jax.process_count()}: "
+          f"{devs[0].platform} x{len(devs)} {devs[0].device_kind} "
+          f"CUDA_VISIBLE_DEVICES="
+          f"{os.environ.get('CUDA_VISIBLE_DEVICES', '')}", flush=True)
 
 
 def main(argv=None) -> int:

@@ -48,7 +48,7 @@ class Profiler:
     @contextmanager
     def scope(self, name: str, annotate: bool = False):
         """Context-manager scope; optionally emits a jax.profiler annotation
-        so the region shows up in TPU traces."""
+        so the region shows up in profiler traces."""
         self.start(name)
         if annotate:
             with jax.profiler.TraceAnnotation(name):

@@ -76,7 +76,8 @@ def test_cli_nprocs_process_group():
     fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "fixtures", "golden_ase.dat")
     env = dict(os.environ)
-    # the workers themselves force CPU; scrub this process's test-mesh env
+    # the workers inherit JAX_PLATFORMS=cpu (conftest); scrub this
+    # process's test-mesh env
     env.pop("XLA_FLAGS", None)
     r = subprocess.run(
         [sys.executable, "-m", "raytrace_tpu.utils.cli", "-methods=lax",

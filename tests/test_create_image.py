@@ -253,7 +253,7 @@ def test_reference_method_aliases():
 
 
 def test_matmul_deposit_matches_scatter():
-    """The one-hot MXU deposit (bf16 triple-split) agrees with segment_sum
+    """The one-hot matmul deposit (bf16 triple-split) agrees with segment_sum
     to ~1e-7 relative on both method families."""
     for seeded in (False, True):
         p1 = synthetic_problem(seeded=seeded)
@@ -265,29 +265,20 @@ def test_matmul_deposit_matches_scatter():
         assert rel < 5e-7 and rel_a < 5e-7, (seeded, rel, rel_a)
 
 
-def test_deposit_kernel_cell_blocking():
-    """The pallas MXU deposit kernel handles images past the single-block
-    VMEM envelope by tiling over cell blocks (a -scale=16 image has ~6000
-    cells; the single-block kernel OOMed scoped VMEM there). Interpreted
-    on CPU against segment_sum, forcing multi-block via a tiny budget."""
-    import jax
-    from raytrace_tpu.ops import deposit_kernel as dk
+def test_split_bf16x3_exact():
+    """The matmul deposit's bfloat16 triple recovers each f32 value: the
+    three planes are exact truncations, so hi + mid + lo == x to ~2^-24
+    relative (the last plane rounds)."""
+    from raytrace_tpu.ops.binning import split_bf16x3
 
     rng = np.random.default_rng(7)
-    B, K = 2048, 52
-    for C in (257, 6001):
-        contrib = jnp.asarray(rng.normal(size=(B, K)).astype(np.float32))
-        bins = jnp.asarray(rng.integers(0, C, size=B).astype(np.int32))
-        want = jax.ops.segment_sum(contrib, bins, num_segments=C)
-        got = dk.deposit_tiles(contrib, bins, C, interpret=True)
-        assert got.shape == (C, K)
-        rel = (np.linalg.norm(np.asarray(got) - np.asarray(want))
-               / np.linalg.norm(np.asarray(want)))
-        assert rel < 5e-7, (C, rel)
-        # force the multi-block path even at small C
-        blk = dk._c_block(C, K)
-        if C > blk:
-            assert blk % 8 == 0 and blk < C  # genuine multi-block case
+    x = (rng.normal(size=4096) * np.exp(rng.uniform(-20, 20, 4096))
+         ).astype(np.float32)
+    hi, mid, lo = split_bf16x3(jnp.asarray(x))
+    assert hi.dtype == jnp.bfloat16 and lo.dtype == jnp.bfloat16
+    got = (np.asarray(hi, np.float64) + np.asarray(mid, np.float64)
+           + np.asarray(lo, np.float64))
+    assert np.max(np.abs(got - x) / np.abs(x)) < 2 ** -23
 
 
 def test_two_float_spectrum_matches_f64():
@@ -339,9 +330,9 @@ def test_exp_fast2_accuracy():
 
 def test_many_segments_pallas_matches_lax():
     """N > 3 through the pallas backend: the kernel's fori segment loop
-    (SMEM-scalar geometry) must agree with the lax backend at any segment
-    count up to the reference's N_MAX. A python-unrolled kernel was O(N) in
-    compiled program size and Mosaic compile time exploded past N ~ 5."""
+    (per-segment geometry read from a small array) must agree with the lax
+    backend at any segment count up to the reference's N_MAX; the compiled
+    kernel stays O(1) in the segment count."""
     p1 = synthetic_problem(nx=6, ny=4, na=4, nb=3, nv=5, N=7)
     img_l, ang_l = create_image(p1, "lax")
     p2 = synthetic_problem(nx=6, ny=4, na=4, nb=3, nv=5, N=7)
@@ -505,10 +496,10 @@ def test_backward_seeded_chunk_core_matches_oracle():
 
 
 def test_wide_gain_grid_pallas_matches_lax_exact():
-    """Nx=256 x Ny=52 gain grids -- wider than the 128-lane shuffle table,
-    so the pallas kernel's multi-slab fetch path (k1 -> (slab, lane), row
-    j*nslab + slab) engages. Cross-backend gate vs lax-exact (the
-    general-geometry reference backend), ASE + seeded.
+    """Nx=256 x Ny=52 gain grids -- wider than the lax backend's 128-column
+    one-hot fetch; the kernel's gathers index the full 255-cell rows.
+    Cross-backend gate vs lax-exact (the general-geometry reference
+    backend), ASE + seeded.
 
     The lax fast backend's own envelope (Nx-1 <= 128) must now resolve
     independently: 'lax' on this problem silently falls back to lax-exact
@@ -521,7 +512,7 @@ def test_wide_gain_grid_pallas_matches_lax_exact():
     assert _resolve_backend("pallas", True, False) == "pallas"
     assert _resolve_backend("lax", True, False) == "lax-exact"
     pg = pk.pack_gain_tables(p.gain, True)
-    assert pg.nslab == 2
+    assert pg.tables.shape == (p.N - 1, 255 * 51 * 16)
     want_img, want_ang = _oracle_images(p, 1)
     for backend in ("lax-exact", "pallas"):
         p2 = synthetic_problem(nx=6, ny=4, na=4, nb=3, nv=5,
@@ -545,16 +536,17 @@ def test_wide_gain_grid_seeded_pallas_matches_lax_exact():
 
 def test_nonuniform_gain_pallas_matches_oracle():
     """Strongly non-uniform (power-warped) gain grids at the performance
-    tier: the pallas kernel's in-kernel findindex bisection + per-cell
-    geometry channels vs the scalar oracle and lax-exact (the reference's
-    arbitrary-grid envelope, RayTraceImageHelper.h:472-494)."""
+    tier: the pallas kernel's in-kernel findindex bisection over the f64
+    coordinate rows + per-cell geometry vs the scalar oracle and lax-exact
+    (the reference's arbitrary-grid envelope,
+    RayTraceImageHelper.h:472-494)."""
     from raytrace_tpu.ops import pallas_kernel as pk
 
     p = synthetic_problem(nx=6, ny=4, na=4, nb=3, nv=5,
                           non_uniform_gain=0.5)
     assert pk.fits_pallas(p.gain, True)
     pg = pk.pack_gain_tables(p.gain, True)
-    assert pg.nonuniform and pg.nslab == 1
+    assert pg.nonuniform and pg.xg.dtype == jnp.float64
     want_img, want_ang = _oracle_images(p, 1)
     for backend in ("lax-exact", "pallas"):
         p2 = synthetic_problem(nx=6, ny=4, na=4, nb=3, nv=5,
@@ -591,37 +583,56 @@ def test_mixed_y_mirror_falls_back():
     assert np.all(np.isfinite(img))
 
 
-def test_over_envelope_gain_grid_falls_back():
-    """A uniform grid whose channel tables exceed the pallas VMEM budget
-    must resolve to lax-exact (never raise mid-call) -- for 'auto' AND for
-    an explicit 'pallas' request, matching the silent-fallback semantics
-    of the other envelope gates."""
+def test_over_envelope_gain_grid_falls_back(monkeypatch):
+    """A gain geometry whose channel table the kernel's int32 gather
+    offsets cannot index must resolve to lax-exact (never raise mid-call)
+    -- for 'auto' AND for an explicit 'pallas' request, matching the
+    silent-fallback semantics of the other envelope gates."""
     from raytrace_tpu.models.ray_tracer import _resolve_backend
     from raytrace_tpu.ops import pallas_kernel as pk
+    from raytrace_tpu.structures import RayGain
 
-    p = synthetic_problem(nx=4, ny=3, na=3, nb=2, nv=4, N=12,
-                          gain_nx=1000, gain_ny=120)
-    assert not pk.fits_pallas(p.gain, True)  # 12*16*120*8*128*4 > 8 MiB
+    # 3 segments of 40000 x 4000 points: 2 x 39999 x 3999 x 16 channels
+    # > 2^31 table elements (only the grids are built, not the tables)
+    huge = []
+    for _ in range(3):
+        g = RayGain()
+        g.x = np.linspace(0.0, 1.0, 40000)
+        g.y = np.linspace(0.0, 1.0, 4000)
+        huge.append(g)
+    assert not pk.fits_pallas(huge, True)
+    with pytest.raises(ValueError):
+        pk.pack_gain_tables(huge, True)
     assert _resolve_backend("pallas", False, False) == "lax-exact"
     assert _resolve_backend("auto", False, False) == "lax-exact"
-    # end-to-end: no ValueError from pack_gain_tables
+    # end-to-end through create_image, with the envelope shrunk below a
+    # small problem's table: no ValueError from pack_gain_tables
+    p = synthetic_problem(nx=4, ny=3, na=3, nb=2, nv=4)
+    monkeypatch.setattr(pk, "MAX_TABLE_ELEMS", 1000)
+    assert not pk.fits_pallas(p.gain, True)
+    from raytrace_tpu.models.ray_tracer import resolve_method
+    assert resolve_method(p, "pallas") == "lax-exact"
     img, ang = create_image(p, "pallas", chunk_size=512)
     assert np.all(np.isfinite(img))
 
 
 def test_narrow_gain_grid_packing_unchanged():
-    """The Nx <= 129 fast path: nslab == 1 and the packed table layout is
-    bit-identical to the pre-multi-slab layout (row j holds y-row j)."""
-    from raytrace_tpu.ops import pallas_kernel as pk
+    """The kernel and the lax backend share one channel packing: on a
+    narrow grid the kernel's gather table is the one-hot table cut to the
+    grid's width, and cell (j, i) of segment 1 holds the n1 corner
+    n[j, i] in channel 0."""
+    from raytrace_tpu.ops import fast_stepper, pallas_kernel as pk
 
     p = synthetic_problem()
     pg = pk.pack_gain_tables(p.gain, True)
-    assert pg.nslab == 1
-    g = p.gain[0]
+    ft = fast_stepper.pack_fast_tables(p.gain, True)
+    g = p.gain[1]
+    W, nyc, nch = g.Nx - 1, pg.ny_cells, pg.nch
+    kern = np.asarray(pg.tables).reshape(p.N - 1, W, nyc * nch)
+    assert np.array_equal(kern, np.asarray(ft.tx)[:, :W])
     n = np.asarray(g.n, np.float64).reshape(g.Ny, g.Nx)
-    # channel 0 = n1 corner (cell [j, i] -> n[j, i])
-    got = np.asarray(pg.tables[0, 0, : g.Ny - 1, : g.Nx - 1])
-    assert np.array_equal(got, n[:-1, :-1].astype(np.float32))
+    got = kern[0].reshape(W, nyc, nch)[:, : g.Ny - 1, 0]
+    assert np.array_equal(got, n[:-1, :-1].T.astype(np.float32))
 
 
 def test_full_plane_ase_all_backends():

@@ -120,7 +120,7 @@ def test_production_loop_two_process_matches_single():
     env.pop("XLA_FLAGS", None)
     # both sides on CPU: the f32 trace differs per platform at ulp level,
     # which amplification turns into ~1e-7 -- not what this test gates on
-    env["RAYTRACE_FORCE_CPU"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
 
     def esums(text):
         return [float(m) for m in re.findall(r"E_sum=([0-9.e+-]+)", text)]

@@ -11,8 +11,10 @@ Two tiers:
   so a regression in the seeded path or the pallas kernel fails plain
   ``pytest -q``.
 * **Full snapshots (RAYTRACE_GOLDEN_TESTS=1)**: the shipped 399k/7.8M-ray
-  production problems, minutes on the CPU test mesh. The TPU benchmark
-  harness (bench.py) exercises the same gates on every bench run.
+  production problems, minutes on the CPU test mesh. The GPU benchmark
+  harness (bench.py) exercises the same gates on every bench run. The
+  snapshots are not in the repository; the tier reads them from
+  ``snapshots/`` at the repository root once they are.
 """
 
 import os
@@ -22,11 +24,11 @@ import pytest
 
 import raytrace_tpu
 from raytrace_tpu import create_image, load_input
+from raytrace_tpu.testing import ASE_SNAPSHOT, SEED_SNAPSHOT
 from raytrace_tpu.utils.stats import check_ans
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
-ASE = "/root/reference/ASE_small.dat"
-SEED = "/root/reference/seed_small.dat"
+ASE, SEED = ASE_SNAPSHOT, SEED_SNAPSHOT
 run_golden = os.environ.get("RAYTRACE_GOLDEN_TESTS") == "1"
 
 
@@ -51,9 +53,8 @@ def test_fixture_golden(fixture, method):
 
 def test_fixture_golden_dense_pallas():
     """The pure-reduction (dense) deposit under the pallas backend: chunks
-    align to lcm(TILE, na*nb) so whole angular blocks land in whole ray
-    tiles. Measured slower than scatter on TPU (ROADMAP.md) but kept as a
-    tested capability (the deposit the reference's natural-order CPU loop
+    align to lcm(BLOCK, na*nb) so whole angular blocks land in whole kernel
+    blocks. Kept as a tested capability (the deposit the reference's natural-order CPU loop
     collapses to, src/RayTraceImageCPU.cpp:56-68)."""
     problem, image0, i_ang0 = load_input(os.path.join(FIXTURES,
                                                       "golden_ase.dat"))

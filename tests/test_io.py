@@ -11,10 +11,9 @@ from raytrace_tpu.io import compression as zc
 from raytrace_tpu.io import serialization as ser
 from raytrace_tpu.io.loader import load_input, save_input, scale_problem
 from raytrace_tpu.structures import approx_equal
-from raytrace_tpu.testing import synthetic_problem
+from raytrace_tpu.testing import (ASE_SNAPSHOT as ASE, SEED_SNAPSHOT as SEED,
+                                  synthetic_problem)
 
-ASE = "/root/reference/ASE_small.dat"
-SEED = "/root/reference/seed_small.dat"
 HAVE_DATA = os.path.exists(ASE) and os.path.exists(SEED)
 
 
@@ -160,7 +159,7 @@ def test_truncated_snapshot_raises_cleanly(tmp_path):
     the pure-Python fallback."""
     import numpy as np
 
-    data = open("/root/reference/ASE_small.dat", "rb").read()
+    data = open(ASE, "rb").read()
     rng = np.random.default_rng(0)
     for cut in sorted(int(c) for c in rng.integers(1, len(data), 12)):
         p = tmp_path / f"cut_{cut}.dat"

@@ -19,11 +19,10 @@ from raytrace_tpu.parallel import collectives
 from raytrace_tpu.parallel.mesh import make_mesh
 from raytrace_tpu.parallel.sharding import create_image_sharded
 from raytrace_tpu.structures import IntensityStep
-from raytrace_tpu.testing import synthetic_problem
+from raytrace_tpu.testing import (ASE_SNAPSHOT as ASE, SEED_SNAPSHOT as SEED,
+                                  synthetic_problem)
 from raytrace_tpu.utils.stats import check_ans
 
-ASE = "/root/reference/ASE_small.dat"
-SEED = "/root/reference/seed_small.dat"
 run_golden = os.environ.get("RAYTRACE_GOLDEN_TESTS") == "1"
 
 needs_mesh = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -49,7 +48,7 @@ def test_sharded_matches_single(seeded):
 def test_sharded_pallas_matches_single(seeded):
     """The fastest backend runs per shard (no silent lax downgrade) -- the
     reference's multi-GPU path likewise drives its CUDA kernel per device
-    (src/RayTraceImage.cpp:396-405). Off-TPU the kernel executes via the
+    (src/RayTraceImage.cpp:396-405). On the CPU the kernel executes via the
     Pallas interpreter."""
     p1 = synthetic_problem(seeded=seeded)
     img1, ang1 = create_image(p1, "lax")
@@ -64,7 +63,7 @@ def test_sharded_pallas_matches_single(seeded):
 def test_sharded_deposit_parity():
     """The deposit-strategy knob reaches the sharded pipeline with the same
     semantics as single-chip (the reference's multi-GPU path drives the
-    same fastest kernel per device, src/RayTraceImage.cpp:396-405): the MXU
+    same fastest kernel per device, src/RayTraceImage.cpp:396-405): the one-hot
     matmul deposit and the scatter deposit must agree on the mesh."""
     mesh = make_mesh(8)
     ps = synthetic_problem(seeded=True)
@@ -79,17 +78,12 @@ def test_sharded_deposit_parity():
 def test_sharded_auto_deposit_matches_single_chip_policy():
     """create_image_sharded resolves 'auto' through the exact same policy
     function as create_image -- config parity by construction."""
-    import jax.numpy as jnp
     from raytrace_tpu.models.ray_tracer import resolve_bin_deposit
-    for backend in ("lax", "pallas"):
-        for method in (1, 2):
-            for sd in (jnp.float32, jnp.float64):
-                assert resolve_bin_deposit("auto", backend, method, sd) in (
-                    "matmul", "scatter")
+    assert resolve_bin_deposit("auto") in ("matmul", "scatter")
     # explicit strategies pass through; 'dense' maps to scatter (the dense
     # row layout requires natural-order full coverage, not stride shards)
-    assert resolve_bin_deposit("matmul", "lax", 1, jnp.float32) == "matmul"
-    assert resolve_bin_deposit("dense", "lax", 1, jnp.float32) == "scatter"
+    assert resolve_bin_deposit("matmul") == "matmul"
+    assert resolve_bin_deposit("dense") == "scatter"
 
 
 @needs_mesh
@@ -253,7 +247,7 @@ def test_sharded_split_upload_matches_one_dispatch(monkeypatch):
 def test_seed_scaled_sharded_matches_single():
     """The seed_medium proxy (seed_small at -scale=4, ~30.7M-ray geometry;
     Readme.txt:47-49, src/CreateImageHelpers.cpp:104-150) through the
-    sharded pipeline on the CPU mesh. The full ray count is a TPU
+    sharded pipeline on the CPU mesh. The full ray count is a GPU
     measurement (bench.py's seed_scale4_* row); here the stride contract
     (N_parallel) computes every 997th ray of the SCALED geometry -- the
     production sharding mechanism itself -- so the scaled grids, seed

@@ -3,9 +3,8 @@
 The serving-mode lever from the micro-step census (ROADMAP.md): per-ray
 trace cost is invariant under production-style table perturbation, so a
 stream sorts call k's rays by (entry fetch row, call k-1's measured
-per-lane micro-step count) -- ray_tracer.reorder_perm, the TPU-A/B-winning
-order (1.55x trace on ASE, tools/bench_reorder.py). These tests pin the
-plumbing on the CPU interpreter:
+per-lane micro-step count) -- ray_tracer.reorder_perm (tools/bench_reorder.py
+measures it). These tests pin the plumbing on the CPU interpreter:
 the permutation math, the counts round trip, and that the reordered
 executor reproduces the synchronous images (up to f64 scatter-add
 reassociation -- the documented non-bitwise trade, SURVEY.md section 5).
@@ -199,8 +198,7 @@ def test_stream_reorder_row_free_fallback_e2e(monkeypatch):
     pc = rng.integers(0, 500, size=(n_chunks, chunk)).astype(np.int32)
     outs = prep.pipeline(*prep.operands, jnp.asarray(pc))
     it_all = np.asarray(outs[5])
-    from raytrace_tpu.ops import pallas_kernel as pk
-    w = min(ray_tracer._REORDER_WINDOW_TILES * pk.TILE, chunk)
+    w = min(ray_tracer._REORDER_WINDOW, chunk)
     for ci in range(n_chunks):
         want = np.asarray(_window_perm(jnp.asarray(pc[ci]), w))
         assert np.array_equal(it_all[ci] - ci * chunk, want)

@@ -92,23 +92,11 @@ def test_lockstep_straight_rays(backend):
         res = fast_stepper.trace_batch_fast(rays, p.N, b.dz, ft, 1,
                                             use_emis=True)
     else:
+        # the Pallas-Triton kernel in interpret mode, one 128-ray block
+        # (the GPU block size) holding the 64 rays plus padding
         from raytrace_tpu.ops import pallas_kernel as pk
-        pad = pk.TILE - n_rays
-        tiled = {k: jnp.pad(v, (0, pad)).reshape(1, pk.TILE_ROWS,
-                                                 pk.TILE_LANES)
-                 for k, v in rays.items()}
         pg = pk.pack_gain_tables(p.gain, use_emis=True)
-        gvl, evl, ivl_t, *_ = pk.trace_tiles(tiled, p.N, b.dz, pg, 1)
-        nseg = p.N - 1
-
-        class _R:
-            pass
-
-        res = _R()
-        res.gvl = np.asarray(gvl).transpose(0, 3, 4, 1, 2).reshape(
-            pk.TILE, nseg, pk.N_SUB)[:n_rays]
-        res.ivl = np.asarray(ivl_t).transpose(0, 3, 4, 1, 2).reshape(
-            pk.TILE, nseg, pk.N_SUB)[:n_rays]
+        res = pk.trace_rays(rays, p.N, b.dz, pg, 1, block=pk.BLOCK)
     gvl = np.asarray(res.gvl)
     ivl = np.asarray(res.ivl)
     for t in range(n_rays):
@@ -151,9 +139,9 @@ def test_exact_stepper_non_uniform_grid():
 def test_pallas_step_counts_match_fast_census():
     """The pallas kernel's per-lane micro-step counter (counts=True, the
     cost-feedback reorder signal) must equal the fast stepper's census
-    counter exactly: the two backends execute identical per-lane step
-    sequences (the lockstep property), so their counts are the same
-    integers, not just statistically close."""
+    counter exactly: the two backends run one step function
+    (fast_stepper.segment_walk), so their counts are the same integers, not
+    just statistically close."""
     from raytrace_tpu.ops import pallas_kernel as pk
 
     p = synthetic_problem()
@@ -161,7 +149,7 @@ def test_pallas_step_counts_match_fast_census():
     ft = fast_stepper.pack_fast_tables(p.gain, use_emis=True)
     pg = pk.pack_gain_tables(p.gain, use_emis=True)
     rng = np.random.default_rng(3)
-    xs, ys, aa, bb = _sample_rays(p, pk.TILE, rng)
+    xs, ys, aa, bb = _sample_rays(p, 1024, rng)
     rays = {k: jnp.asarray(v) for k, v in zip("xyab", (xs, ys, aa, bb))}
 
     fast_stepper.DEBUG_COUNTERS = True
@@ -172,26 +160,22 @@ def test_pallas_step_counts_match_fast_census():
         fast_stepper.DEBUG_COUNTERS = False
     want = np.asarray(ctr["steps"])
 
-    tiled = {k: v.reshape(1, pk.TILE_ROWS, pk.TILE_LANES)
-             for k, v in rays.items()}
-    outs = pk.trace_tiles(tiled, p.N, b.dz, pg, 1, counts=True)
-    got = np.asarray(outs[-1]).reshape(-1)
+    res, cnt = pk.trace_rays(rays, p.N, b.dz, pg, 1, counts=True)
+    got = np.asarray(cnt)
     assert np.array_equal(got, want), (
         f"count mismatch on {np.sum(got != want)} lanes")
     # and the counting variant must not perturb the physics outputs
-    outs0 = pk.trace_tiles(tiled, p.N, b.dz, pg, 1)
-    assert np.array_equal(np.asarray(outs[0]), np.asarray(outs0[0]))
+    res0 = pk.trace_rays(rays, p.N, b.dz, pg, 1)
+    for name in res._fields:
+        assert np.array_equal(np.asarray(getattr(res, name)),
+                              np.asarray(getattr(res0, name))), name
 
 
 @pytest.mark.parametrize("seeded", [False, True])
-def test_merged_thin_bitwise_equals_merged(seeded):
-    """The carry-thinned merged loop (structure="merged-thin": service-only
-    lane state in VMEM scratch, per-sub slots flushed straight into the
-    output refs, box2 recomputed from cdz2 - z2) executes the SAME per-lane
-    ops in the SAME order as "merged" -- only storage differs -- so every
-    output must be BITWISE equal, counts variant included. A ulp-level
-    difference here means the thinning changed an expression, not just a
-    location."""
+def test_kernel_block_padding_invariant(seeded):
+    """A batch that is not a multiple of the block is padded with rays that
+    escape at once and cut back; lanes are independent, so every output
+    (counts included) is bitwise the same at any block size."""
     from raytrace_tpu.ops import pallas_kernel as pk
 
     p = synthetic_problem(seeded=seeded, rng=11)
@@ -200,16 +184,47 @@ def test_merged_thin_bitwise_equals_merged(seeded):
     method = 2 if seeded else 1
     pg = pk.pack_gain_tables(p.gain, use_emis=use_emis)
     rng = np.random.default_rng(5)
-    xs, ys, aa, bb = _sample_rays(p, pk.TILE, rng)
-    tiled = {k: jnp.asarray(v).reshape(1, pk.TILE_ROWS, pk.TILE_LANES)
-             for k, v in zip("xyab", (xs, ys, aa, bb))}
-    outs = {s: [np.asarray(o) for o in pk.trace_tiles(
-        tiled, p.N, b.dz, pg, method, structure=s, counts=True)]
-        for s in ("merged", "merged-thin")}
-    names = ("gvl", "evl", "ivl", "ex", "ey", "esx", "esy", "esz", "esc",
-             "counts")
-    for name, a, bb_ in zip(names, outs["merged"], outs["merged-thin"]):
-        assert np.array_equal(a, bb_), f"{name} not bitwise equal"
+    xs, ys, aa, bb = _sample_rays(p, 300, rng)
+    rays = {k: jnp.asarray(v) for k, v in zip("xyab", (xs, ys, aa, bb))}
+    outs = {blk: pk.trace_rays(rays, p.N, b.dz, pg, method, counts=True,
+                               block=blk) for blk in (128, 512)}
+    (r1, c1), (r2, c2) = outs[128], outs[512]
+    assert r1.gvl.shape == (300, p.N - 1, 3) and c1.shape == (300,)
+    for name in r1._fields:
+        assert np.array_equal(np.asarray(getattr(r1, name)),
+                              np.asarray(getattr(r2, name))), name
+    assert np.array_equal(np.asarray(c1), np.asarray(c2))
+    assert int(np.asarray(c1).max()) > 0
+
+
+@pytest.mark.parametrize("method", [1, 2])
+def test_kernel_lockstep_with_fast_stepper(method):
+    """Kernel (gather fetch, block batch) vs the XLA stepper (one-hot fetch,
+    chunk batch) on refraction-free rays: the shared step function gives
+    the same cell ids and step counts, and values to f32 rounding."""
+    from raytrace_tpu.ops import pallas_kernel as pk
+
+    p = synthetic_problem(refraction_free=True, seeded=(method == 2))
+    b = p.euv_beam
+    use_emis = method == 1
+    rng = np.random.default_rng(8)
+    xs, ys, aa, bb = _sample_rays(p, 200, rng)
+    rays = {k: jnp.asarray(v) for k, v in zip("xyab", (xs, ys, aa, bb))}
+    ft = fast_stepper.pack_fast_tables(p.gain, use_emis=use_emis)
+    fast_stepper.DEBUG_COUNTERS = True
+    try:
+        r_f, ctr = fast_stepper.trace_batch_fast(rays, p.N, b.dz, ft, method,
+                                                 use_emis=use_emis)
+    finally:
+        fast_stepper.DEBUG_COUNTERS = False
+    pg = pk.pack_gain_tables(p.gain, use_emis=use_emis)
+    r_k, cnt = pk.trace_rays(rays, p.N, b.dz, pg, method, counts=True)
+    assert np.array_equal(np.asarray(cnt), np.asarray(ctr["steps"]))
+    assert np.array_equal(np.asarray(r_k.ivl), np.asarray(r_f.ivl))
+    assert np.array_equal(np.asarray(r_k.escaped), np.asarray(r_f.escaped))
+    g_f = np.asarray(r_f.gvl)
+    rel = np.abs(np.asarray(r_k.gvl) - g_f) / np.maximum(np.abs(g_f), 1e-6)
+    assert rel.max() < 1e-5, rel.max()
 
 
 def test_exact_stepper_grid_line_tie():
@@ -245,23 +260,31 @@ def test_exact_stepper_grid_line_tie():
                           o.ivl[: p.N - 1].ravel())
 
 
-def test_merged_thin_full_pipeline(monkeypatch):
-    """merged-thin through the WHOLE create_image path (the
-    RAYTRACE_KERNEL_STRUCTURE=merged-thin plumbing, not just the raw
-    kernel): image bitwise-equal to the default structure."""
-    from raytrace_tpu.models.ray_tracer import create_image
+def test_kernel_nonuniform_grid_line_tie():
+    """The kernel's findindex bisection on non-uniform grids compares in
+    f64 against the f64 coordinate rows, so a ray entering EXACTLY on a
+    gain-grid line resolves to the oracle's cell (the exact stepper's
+    grid-line rule above)."""
     from raytrace_tpu.ops import pallas_kernel as pk
 
-    from raytrace_tpu.models import ray_tracer as rt
-
-    p1 = synthetic_problem(rng=4)
-    img0, ang0 = create_image(p1, "pallas")
-    monkeypatch.setattr(pk, "KERNEL_STRUCTURE", "merged-thin")
-    p2 = synthetic_problem(rng=4)
-    img1, ang1 = create_image(p2, "pallas")
-    # the knob actually took effect: a distinct pipeline was compiled
-    # (the cache key carries the kernel knobs -- a stale-pipeline serve
-    # here would make this test vacuous)
-    assert any("merged-thin" in str(k) for k in rt._PIPELINE_CACHE)
-    assert np.array_equal(np.asarray(img0), np.asarray(img1))
-    assert np.array_equal(np.asarray(ang0), np.asarray(ang1))
+    p = synthetic_problem(nx=4, ny=3, na=2, nb=3, nv=4, N=4,
+                          non_uniform_gain=0.5, refraction_free=True, rng=3)
+    b = p.euv_beam
+    g = p.gain[1]
+    # entry x exactly on an interior grid line (f32-representable)
+    x = np.float32(g.x[9])
+    for s_ in p.gain:
+        s_.x[9] = float(x)
+    y, aa, bb = (np.float32(b.y[1]), np.float32(0.0), np.float32(0.0))
+    pg = pk.pack_gain_tables(p.gain, use_emis=True)
+    assert pg.nonuniform
+    rays = {k: jnp.asarray(np.array([v], np.float32))
+            for k, v in zip("xyab", (x, y, aa, bb))}
+    res = pk.trace_rays(rays, p.N, b.dz, pg, 1)
+    o = oracle.calc_ray((x, y, aa, bb), p.N, b.dz, p.gain, None, b.nv, 1)
+    assert np.array_equal(np.asarray(res.ivl)[0].ravel(),
+                          o.ivl[: p.N - 1].ravel())
+    got = np.asarray(res.gvl)[0].ravel()
+    want = o.gvl[: p.N - 1].ravel()
+    denom = np.maximum(np.abs(want), 1e-6)
+    assert np.max(np.abs(got - want) / denom) < 1e-5

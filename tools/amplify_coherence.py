@@ -17,7 +17,7 @@ This tool measures, on the real snapshots, the distribution of u per
 (ray, segment) AND the per-chunk maximum (what a shape-static
 ``lax.switch`` over {1,2,3} fetch plans would actually execute, since all
 lanes of a chunk share one plan). Run BEFORE building the reduced-gather
-amplify (VERDICT r03 item 3): if chunk-max u is 3 everywhere, the static
+amplify: if chunk-max u is 3 everywhere, the static
 reduction is dead on arrival and only a per-lane select plan can help.
 
 Usage: python tools/amplify_coherence.py [ase|seed|scale16|scale4seed] ...
@@ -40,9 +40,10 @@ import numpy as np  # noqa: E402
 
 from raytrace_tpu.io.loader import load_input, scale_problem  # noqa: E402
 from raytrace_tpu.ops import fast_stepper as fs  # noqa: E402
+from raytrace_tpu.ops.pallas_kernel import BLOCK  # noqa: E402
 
-ASE = "/root/reference/ASE_small.dat"
-SEED = "/root/reference/seed_small.dat"
+from raytrace_tpu.testing import (ASE_SNAPSHOT as ASE,  # noqa: E402
+                                  SEED_SNAPSHOT as SEED)
 CHUNK = 65536  # the pallas auto-chunk: what a chunk-level switch sees
 
 
@@ -122,13 +123,13 @@ def analyze(name, problem, method):
     print(f"  chunk-max u per (chunk, seg): "
           f"{np.bincount(cmax.reshape(-1), minlength=4)[1:4].tolist()} "
           f"(counts at u=1/2/3 over {cmax.size} chunk-segments)")
-    # and per (8,128)-tile (a tile-level plan inside the kernel would see)
-    tpad = (-n) % 1024
+    # and per kernel block (a block-level plan inside the kernel would see)
+    tpad = (-n) % BLOCK
     ut = np.pad(u, ((0, tpad), (0, 0)), constant_values=1)
-    tmax = ut.reshape(-1, 1024, nseg).max(axis=1)
+    tmax = ut.reshape(-1, BLOCK, nseg).max(axis=1)
     tb = np.bincount(tmax.reshape(-1), minlength=4)[1:4]
-    print(f"  tile-max u per (tile, seg):  {tb.tolist()} "
-          f"(counts at u=1/2/3 over {tmax.size} tile-segments)")
+    print(f"  block-max u per (block, seg):  {tb.tolist()} "
+          f"(counts at u=1/2/3 over {tmax.size} block-segments)")
 
 
 def main():

@@ -36,11 +36,12 @@ def main():
     from raytrace_tpu import create_image, load_input
     from raytrace_tpu.models import ray_tracer
     from raytrace_tpu.ops import binning, spectrum
+    from raytrace_tpu.testing import SEED_SNAPSHOT
 
     which = sys.argv[1] if len(sys.argv) > 1 else "full"
     chunk = int(sys.argv[2]) if len(sys.argv) > 2 else 65536
 
-    problem, image0, iang0 = load_input("/root/reference/seed_small.dat")
+    problem, image0, iang0 = load_input(SEED_SNAPSHOT)
 
     if which in ("noamp", "trace"):
         real_amplify = spectrum.amplify

@@ -83,10 +83,9 @@ def run(n_steps: int = 2) -> int:
 
 
 def main() -> int:
-    if os.environ.get("RAYTRACE_FORCE_CPU") == "1":
-        # must run before backend init (the env-var spelling is ignored
-        # once the TPU plugin is importable); lets comparisons against the
-        # worker ranks (which always run CPU) be platform-for-platform
+    if os.environ.get("JAX_PLATFORMS") == "cpu":
+        # before backend init; lets comparisons against the worker ranks
+        # (which always run on the CPU) be platform-for-platform
         import jax
 
         jax.config.update("jax_platforms", "cpu")

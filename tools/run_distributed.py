@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Multi-process worker for the distributed collectives test harness.
 
-The TPU-native analogue of running the reference under ``mpirun -np P``
+The JAX analogue of running the reference under ``mpirun -np P``
 (src/CreateImage.cpp:226-236 under MPI): every process computes a stride-
 decomposed share of the rays (the N_start/N_parallel contract,
 src/RayTraceImage.cpp:300-328), the image buffers meet in a cross-process

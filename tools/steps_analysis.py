@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Micro-step census + tile-utilization analysis of the trace stage.
 
-The pallas stepper pays, per (8,128)-ray tile and per segment, the MAX
-micro-step count over the tile's 1024 lanes (every lane rides the same
+The pallas stepper pays, per block of TILE rays and per segment, the MAX
+micro-step count over the block's lanes (every lane rides the same
 vector registers; finished lanes idle masked). This tool measures the true
 per-ray micro-step counts (fast_stepper.DEBUG_COUNTERS, identical step
 sequences to the pallas kernel by the lockstep tests) on the real
@@ -11,12 +11,10 @@ workloads and computes:
 * the per-ray step distribution (how heavy is the tail?),
 * the kernel cost model: rounds = sum over tiles of sum over segments of
   the tile max  (up to the constant per-round op cost),
-* tile utilization = total true steps / (rounds * 1024),
+* tile utilization = total true steps / (rounds * TILE),
 * the same under hypothetical ray orders (perfect cost sort, cheap proxy
   sorts like |x| or |y|) -- quantifying the ceiling of any reordering
-  lever BEFORE paying device-sort or implementation cost
-  (ROADMAP.md "Remaining levers" #2: the shuffle A/B bounded coherence
-  value at ~0.45 s on seeded; this bounds the residual).
+  lever BEFORE paying device-sort or implementation cost.
 
 Usage:  python tools/steps_analysis.py [ase|seed|scale16] ...
 
@@ -40,10 +38,10 @@ import numpy as np  # noqa: E402
 from raytrace_tpu.io.loader import load_input, scale_problem  # noqa: E402
 from raytrace_tpu.ops import fast_stepper as fs  # noqa: E402
 
-TILE = 1024  # pallas (8,128) tile = 1024 consecutive rays
+TILE = 128  # rays per pallas kernel block (ops/pallas_kernel.BLOCK)
 
-ASE = "/root/reference/ASE_small.dat"
-SEED = "/root/reference/seed_small.dat"
+from raytrace_tpu.testing import (ASE_SNAPSHOT as ASE,  # noqa: E402
+                                  SEED_SNAPSHOT as SEED)
 
 
 def ray_entries(problem):
@@ -147,7 +145,7 @@ def analyze(name, problem, method, chunk=65536):
     r, u = tile_cost(steps, np.lexsort((per_ray, k2)))
     rows.append(("sort (k2,cost)", r, u, r0 / r))
     # block-local cost sort: argsort per window of W tiles -- keeps rays
-    # within W*1024 of their natural position, so tile spatial coherence
+    # within W*TILE of their natural position, so tile spatial coherence
     # (the fetch loop's rowid span) survives while divergence still drops
     for W in (8, 64):
         win = W * TILE
